@@ -8,14 +8,21 @@ result when the package is not beside it or there is no card.  Every phase print
 one JSON line that carries the card's name and power limit:
 
   1. device   nvidia-smi's name and power limit, torch and CUDA versions
-  2. build    nvcc builds csrc/*.cu for sm_90a (one process per source)
-  3. kernel   each kernel against its plain PyTorch version at the
-              leaderboard shapes (B = 120): raw mode bit-exact, lerp within
-              1e-3 (f32 out) or 1.0 (bf16 out) on the 0-255 scale; kernel,
-              plain, bound and library times
+  2. build    nvcc builds csrc/*.cu for sm_90a (one process per source, all
+              started together)
+  3. kernel   each kernel against its plain PyTorch version: the grouped
+              shift at the leaderboard shapes (B = 120; raw mode bit-exact,
+              lerp within 1e-3 f32 / 1.0 bf16 on the 0-255 scale), the flat
+              (NHWC) shift (same bounds) and the fused shift+matmul (f32 out
+              within 1e-2, bf16 out within 1.0) at the pretrain recipe's
+              shapes, an odd row count and rows clamped at both ends; kernel,
+              plain, bound and library (or grouped-route) times
   4. warp     affine_warp_mxu at the pred_fh geometry, kernel against plain,
               both in bf16 on the card: max abs <= 2.5 (the TPU's bound for
-              the same comparison)
+              the same comparison); then the pretrain geometry (256 seeded
+              canvases, 224 -> 128, rotations and crops from augment.draw,
+              area taps) on all three routes, each against itself on plain
+              versions and against the others, the same bound
   5. slice    two-pass RN50 leaderboard inference on 4 batches of 120 seeded
               frames (the last one ragged) through the kernel, with the
               lerp in the kernel and in its raw mode, in turns; launch
@@ -23,7 +30,15 @@ one JSON line that carries the card's name and power limit:
               batch; agreement with the plain path and with the CPU on a
               small input
   6. serving  InferenceSession (batch 32, 128 px) on a few requests
-  7. kernels  one line listing every ported kernel
+  7. pretrain the RN50 PeCLR pretrain step (microbatch 128 x accum 16, bf16
+              autocast) on the warp routes in turns; img/s, ms per step,
+              peak memory, launch counts (2 x accum of the route's kernel a
+              step, none of the others'), where one microbatch's time goes;
+              the routes' first-step losses from one state and the same
+              draws within 1e-2; the card against the CPU at the dry-run
+              shape (RN18, 64 -> 32, accum 2, f32): loss and BatchNorm
+              running statistics within 1e-3
+  8. kernels  one line listing every ported kernel
 Then the card's nvidia-smi line, and last the contract line
 {"ok": true, "device": {...}}.  No weights or data files are read: weights
 and frames are made from a seed.
@@ -32,7 +47,9 @@ and frames are made from a seed.
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
+import math
 import subprocess
 import sys
 import time
@@ -45,6 +62,10 @@ N_FRAMES = 3 * BATCH + 50  # 4 batches, the last one ragged
 SLICE_REPS = 3  # runs of the main path in each shift mode, in turns
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet (700 W)
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+BF16_TC_FLOPS = 989e12  # H100 SXM dense bf16 on the tensor cores
+MICROBATCH, ACCUM = 128, 16  # the pretrain recipe
+PRETRAIN_ROUTES = ("grouped", "matmul", "nhwc")
+PRETRAIN_STEPS = {"grouped": 3, "matmul": 3, "nhwc": 1}  # timed, after 1 warm-up
 CARD = ""
 
 
@@ -75,22 +96,46 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
 
 @contextlib.contextmanager
 def plain_shift():
-    """Route the warp's row shift through the plain PyTorch version (for
+    """Route the warp's kernels through their plain PyTorch versions (for
     the kernel-against-plain comparisons only)."""
-    from peclr_tpu_torch.ops import shift_lerp, warp_mxu
+    from peclr_tpu_torch.ops import shift_lerp, shift_lerp_matmul, warp_mxu
 
+    kernels = (warp_mxu.fused_shift_lerp_grouped,
+               warp_mxu.fused_shift_lerp_matmul, shift_lerp.fused_shift_lerp)
     warp_mxu.fused_shift_lerp_grouped = shift_lerp.shift_lerp_grouped_plain
+    warp_mxu.fused_shift_lerp_matmul = shift_lerp_matmul.shift_lerp_matmul_plain
+    shift_lerp.fused_shift_lerp = shift_lerp.shift_lerp_flat_plain
     try:
         yield
     finally:
-        warp_mxu.fused_shift_lerp_grouped = shift_lerp.fused_shift_lerp_grouped
+        (warp_mxu.fused_shift_lerp_grouped, warp_mxu.fused_shift_lerp_matmul,
+         shift_lerp.fused_shift_lerp) = kernels
+
+
+def kernel_counts():
+    from peclr_tpu_torch.ops.shift_lerp import (
+        fused_shift_lerp,
+        fused_shift_lerp_grouped,
+    )
+    from peclr_tpu_torch.ops.shift_lerp_matmul import fused_shift_lerp_matmul
+
+    return {"shift_lerp_grouped": fused_shift_lerp_grouped.launches,
+            "shift_raw_grouped": fused_shift_lerp_grouped.raw_launches,
+            "shift_lerp_flat": fused_shift_lerp.launches,
+            "shift_lerp_matmul": fused_shift_lerp_matmul.launches}
 
 
 def reset_counts() -> None:
-    from peclr_tpu_torch.ops.shift_lerp import fused_shift_lerp_grouped as k
+    from peclr_tpu_torch.ops.shift_lerp import (
+        fused_shift_lerp,
+        fused_shift_lerp_grouped,
+    )
+    from peclr_tpu_torch.ops.shift_lerp_matmul import fused_shift_lerp_matmul
 
-    k.launches = 0
-    k.raw_launches = 0
+    fused_shift_lerp_grouped.launches = 0
+    fused_shift_lerp_grouped.raw_launches = 0
+    fused_shift_lerp.launches = 0
+    fused_shift_lerp_matmul.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -207,6 +252,469 @@ def phase_kernel(torch, dev):
     return results
 
 
+def flat_bound(rows, k, out_elems, c, out_bytes):
+    """Least time (ms) of the flat shift on these inputs: each source
+    element that some tap reaches read once, k and f once, each output
+    written once, 3 f32 operations per output."""
+    n, w = rows.shape
+    kk = k.long().clamp(-(out_elems // c + 2), w // c) * c
+    reached = (kk + out_elems + c).clamp(0, w) - kk.clamp(0, w)
+    moved = (int(reached.sum().item()) * rows.element_size()
+             + n * out_elems * out_bytes + n * 8)
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = 3 * n * out_elems / F32_FLOPS * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def phase_flat_kernel(torch, dev):
+    """Kernel 3 at the NHWC route's shapes of the pretrain recipe (2B = 256
+    canvases of 224 x 3): pass 1 (57,344 rows of 672 uint8 -> 1,152 bf16),
+    pass 2 (32,768 rows of 672 bf16 -> 768 bf16)."""
+    import torch.nn.functional as F
+
+    from peclr_tpu_torch.ops.shift_lerp import (
+        fused_shift_lerp,
+        shift_lerp_flat_plain,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    c, w_px = 3, 224
+    n1, n2 = 2 * MICROBATCH * 224, 2 * MICROBATCH * 128
+
+    def offsets(n, lo, hi):
+        return torch.rand(n, generator=gen, device=dev) * (hi - lo) + lo
+
+    def rows_of(n, dtype):
+        x = torch.rand((n, w_px * c), generator=gen, device=dev) * 255
+        return x.to(dtype) if dtype != torch.uint8 else x.floor().to(dtype)
+
+    u8, bf, odd = (rows_of(n1, torch.uint8), rows_of(n2, torch.bfloat16),
+                   rows_of(1001, torch.uint8))
+    clamped = torch.cat([offsets(n1 // 2, -5000.0, -(384 + 3.0)),
+                         offsets(n1 - n1 // 2, w_px + 1.0, 5000.0)])
+    cases = [
+        ("flat_pass1_u8_to_bf16", u8, 384, offsets(n1, -424.0, 264.0),
+         torch.bfloat16, 1.0),
+        ("flat_pass1_u8_to_f32", u8, 384, offsets(n1, -424.0, 264.0),
+         torch.float32, 1e-3),
+        ("flat_pass2_bf16_to_bf16", bf, 256, offsets(n2, -296.0, 264.0),
+         torch.bfloat16, 1.0),
+        ("flat_odd_n_1001_u8_to_bf16", odd, 384, offsets(1001, -424.0, 264.0),
+         torch.bfloat16, 1.0),
+        ("flat_clamped_rows_u8_to_f32", u8, 384, clamped, torch.float32, 1e-3),
+    ]
+    results = []
+    for name, rows, out_w, off, out_dtype, tol in cases:
+        k_true = torch.floor(off)
+        k = k_true.clamp(-(out_w + 2), w_px).to(torch.int32)
+        f = (off - k_true).to(torch.float32)
+        out_elems = out_w * c
+
+        def kern():
+            return fused_shift_lerp(rows, k, f, out_elems, c, out_dtype)
+
+        def plain():
+            return shift_lerp_flat_plain(rows, k, f, out_elems, c, out_dtype)
+
+        got, ref = kern(), plain()
+        torch.cuda.synchronize()
+        max_abs = (got.float() - ref.float()).abs().max().item()
+        check(max_abs <= tol, f"{name}: max_abs {max_abs} > {tol}")
+        if name.startswith("flat_clamped"):
+            check(got.abs().max().item() == 0, f"{name}: clamped rows not zero")
+        bound, bound_by = flat_bound(rows, k, out_elems, c, got.element_size())
+        library_ms = None  # grid_sample takes no uint8, nor mixed types
+        if rows.dtype == got.dtype == torch.bfloat16:
+            # one grid_sample of each row as a 1-pixel-high C-channel image
+            planes = rows.view(-1, w_px, c).permute(0, 2, 1).contiguous()
+            library_ms = cuda_ms(grid_sample_shift(
+                planes.permute(1, 0, 2), off, out_w, "bilinear"), 10)
+        row = {
+            "case": name, "shape_in": list(rows.shape), "c": c,
+            "out_elems": out_elems, "in_dtype": str(rows.dtype),
+            "out_dtype": str(got.dtype), "max_abs": max_abs, "tolerance": tol,
+            "ms": cuda_ms(kern, 20), "plain_ms": cuda_ms(plain, 5),
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": library_ms,
+        }
+        results.append(row)
+        emit("kernel", **row)
+    return results
+
+
+def matmul_bound(rows4, k, w_t, out):
+    """Least time (ms) of the fused shift+matmul on these inputs: each
+    source element that some tap reaches, the taps, k and f read once, each
+    output written once; the multiply-adds of the taps that are not zero
+    (the band), on the tensor cores for bf16 taps, plus 3 f32 operations
+    per lerped window element."""
+    g, b, r, w = rows4.shape
+    _, m, u = w_t.shape
+    kk = k.long().clamp(-(u + 2), w)
+    reached = (kk + u + 1).clamp(0, w) - kk.clamp(0, w)
+    moved = (g * int(reached.sum().item()) * rows4.element_size()
+             + w_t.numel() * w_t.element_size()
+             + out.numel() * out.element_size() + b * r * 8)
+    import torch
+
+    nonzero = int((w_t != 0).sum().item())
+    mac_rate = BF16_TC_FLOPS if w_t.dtype == torch.bfloat16 else F32_FLOPS
+    ops_ms = (2 * g * r * nonzero / mac_rate + 3 * g * b * r * u / F32_FLOPS) * 1e3
+    dense_ms = 2 * g * b * r * m * u / mac_rate * 1e3
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    bound = (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+    return bound + (dense_ms, moved)
+
+
+def phase_matmul_kernel(torch, dev):
+    """Kernel 4 at the matmul route's shapes of the pretrain recipe, with
+    area tap matrices of the recipe's slopes: pass 1 (3, 256, 224, 224)
+    uint8, taps (256, 128, 384) bf16 -> (3, 256, 128, 224) bf16; pass 2
+    (3, 256, 128, 224) bf16, taps (256, 128, 256) bf16 -> (3, 256, 128, 128)
+    f32; the f32 taps of precision="f32"; an odd row count; clamped rows.
+    Beside each: the grouped route for the same pass (kernel 1 then
+    torch.matmul), the yardstick of whether fusing pays on this card."""
+    from peclr_tpu_torch.ops.shift_lerp import fused_shift_lerp_grouped
+    from peclr_tpu_torch.ops.shift_lerp_matmul import (
+        fused_shift_lerp_matmul,
+        shift_lerp_matmul_plain,
+    )
+    from peclr_tpu_torch.ops.warp_mxu import _area_matrix
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    b = 2 * MICROBATCH
+
+    def uniform(shape, lo, hi):
+        return torch.rand(shape, generator=gen, device=dev) * (hi - lo) + lo
+
+    def taps(nb, u, m, lo, hi, dtype):
+        return _area_matrix(uniform(nb, lo, hi), u, m, transposed=True).to(dtype)
+
+    def rows_of(shape, dtype):
+        x = uniform(shape, 0, 255)
+        return x.floor().to(dtype) if dtype == torch.uint8 else x.to(dtype)
+
+    p1 = rows_of((3, b, 224, 224), torch.uint8)
+    p2 = rows_of((3, b, 128, 224), torch.bfloat16)
+    odd = rows_of((3, 4, 1001, 224), torch.uint8)
+    n1 = b * 224
+    clamped = torch.cat([uniform(n1 // 2, -5000.0, -(384 + 3.0)),
+                         uniform(n1 - n1 // 2, 225.0, 5000.0)])
+    cases = [
+        ("matmul_pass1_u8_to_bf16", p1, uniform(n1, -424.0, 264.0),
+         taps(b, 384, 128, 1.0, 2.5, torch.bfloat16), torch.bfloat16, 1.0),
+        ("matmul_pass2_bf16_to_f32", p2, uniform(b * 128, -296.0, 264.0),
+         taps(b, 256, 128, 1.0, 1.75, torch.bfloat16), torch.float32, 1e-2),
+        ("matmul_pass2_f32_taps_to_f32", p2.float(),
+         uniform(b * 128, -296.0, 264.0),
+         taps(b, 256, 128, 1.0, 1.75, torch.float32), torch.float32, 1e-2),
+        ("matmul_odd_r_1001_u8_to_f32", odd, uniform(4 * 1001, -424.0, 264.0),
+         taps(4, 384, 128, 1.0, 2.5, torch.bfloat16), torch.float32, 1e-2),
+        ("matmul_clamped_rows_u8_to_f32", p1, clamped,
+         taps(b, 384, 128, 1.0, 2.5, torch.bfloat16), torch.float32, 1e-2),
+    ]
+    results = []
+    for name, rows4, off, w_t, out_dtype, tol in cases:
+        g, nb, r, w = rows4.shape
+        u = w_t.shape[2]
+        k_true = torch.floor(off)
+        k = k_true.clamp(-(u + 2), w).to(torch.int32)
+        f = (off - k_true).to(torch.float32)
+
+        def kern():
+            return fused_shift_lerp_matmul(rows4, k, f, w_t, out_dtype)
+
+        def plain():
+            return shift_lerp_matmul_plain(rows4, k, f, w_t, out_dtype)
+
+        def grouped_route():
+            win = fused_shift_lerp_grouped(rows4.view(g, nb * r, w), k, f, u,
+                                           out_dtype=w_t.dtype)
+            win = win.view(g, nb, r, u).transpose(-1, -2)
+            if out_dtype == torch.float32:
+                return torch.matmul(w_t.float(), win.float())
+            return torch.matmul(w_t, win)
+
+        got, ref = kern(), plain()
+        torch.cuda.synchronize()
+        max_abs = (got.float() - ref.float()).abs().max().item()
+        check(max_abs <= tol, f"{name}: max_abs {max_abs} > {tol}")
+        check(bool(torch.isfinite(got).all()), f"{name}: not finite")
+        if name.startswith("matmul_clamped"):
+            check(got.abs().max().item() == 0, f"{name}: clamped rows not zero")
+        (bound, bound_by, dense_ms, moved) = matmul_bound(rows4, k, w_t, got)
+        row = {
+            "case": name, "shape_in": list(rows4.shape),
+            "taps": list(w_t.shape), "in_dtype": str(rows4.dtype),
+            "taps_dtype": str(w_t.dtype), "out_dtype": str(got.dtype),
+            "max_abs": max_abs, "tolerance": tol,
+            "ms": cuda_ms(kern, 10), "plain_ms": cuda_ms(plain, 3),
+            "bound_ms": bound, "bound_by": bound_by, "bytes_moved": moved,
+            "dense_taps_ops_ms": dense_ms,
+            "library_ms": None,  # no one PyTorch call shifts, lerps and multiplies
+            "grouped_route_ms": cuda_ms(grouped_route, 10),
+        }
+        results.append(row)
+        emit("kernel", **row)
+    return results
+
+
+def phase_recipe_warp(torch, dev):
+    """The pretrain warp on all three routes: 256 seeded canvases, 224 ->
+    128, rotations and crops drawn by augment.draw, area taps, bf16."""
+    from peclr_tpu_torch.config.defaults import (
+        AugmentationParams,
+        peclr_pretrain_flags,
+    )
+    from peclr_tpu_torch.data.synthetic import seeded_frames
+    from peclr_tpu_torch.ops import augment
+    from peclr_tpu_torch.ops.warp_mxu import ROUTES, affine_warp_mxu
+    from peclr_tpu_torch.train.recipe import synthetic_pretrain_batch
+
+    n = 2 * MICROBATCH
+    flags, params = peclr_pretrain_flags(), AugmentationParams()
+    frames = torch.from_numpy(seeded_frames(n, SEED + 4)).to(dev)
+    joints = synthetic_pretrain_batch(n, 224, SEED + 5, device=dev)["joints25d"]
+    draws = augment.draw(torch.Generator(device=dev).manual_seed(SEED + 6), n,
+                         flags, params)
+    matrix = augment.apply(frames, joints, draws, flags, params,
+                           force_crop=True).matrix
+    sx, sy = augment._warp_window_bounds((224, 224), (128, 128), params, True)
+    outs, rows = {}, {}
+    for route in ROUTES:
+        def warp(route=route):
+            return affine_warp_mxu(frames, matrix, (128, 128), interp="area",
+                                   max_scale_x=sx, max_scale_y=sy,
+                                   route=route)
+
+        got = warp()
+        with plain_shift():
+            ref = warp()
+            plain_ms = cuda_ms(warp, 3)
+        torch.cuda.synchronize()
+        check(got.dtype == torch.float32 and got.shape == (n, 128, 128, 3),
+              f"recipe warp {route}: output shape/dtype")
+        max_abs = (got - ref).abs().max().item()
+        check(max_abs <= 2.5, f"recipe warp {route}: kernel vs plain "
+              f"max_abs {max_abs} > 2.5")
+        outs[route] = got
+        rows[route] = {"max_abs_vs_plain": max_abs, "ms": cuda_ms(warp, 10),
+                       "plain_ms": plain_ms}
+    for route in ROUTES:
+        cross = (outs[route] - outs["grouped"]).abs().max().item()
+        check(cross <= 2.5, f"recipe warp {route} vs grouped: {cross} > 2.5")
+        rows[route]["max_abs_vs_grouped"] = cross
+    emit("warp", geometry="pretrain", batch=n, out_hw=[128, 128],
+         interp="area", compute_dtype="bfloat16", windows=[sx, sy],
+         tolerance=2.5, routes=rows)
+
+
+def microbatch_breakdown(torch, model, opt, batch, draws, route):
+    """CUDA-event times of one microbatch of the step (augment, forward,
+    backward), then the optimizer update, mirroring train/step.py."""
+    from peclr_tpu_torch.config.defaults import (
+        AugmentationParams,
+        peclr_pretrain_flags,
+    )
+    from peclr_tpu_torch.losses.equivariance import peclr_projections
+    from peclr_tpu_torch.losses.ntxent import ntxent_loss
+    from peclr_tpu_torch.ops.augment import augment_pair
+
+    flags = peclr_pretrain_flags()
+    mb = MICROBATCH
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    model.train()
+    opt.zero_grad(set_to_none=True)
+    ev[0].record()
+    v1, v2 = augment_pair(None, batch["image"][:mb], batch["joints25d"][:mb],
+                          flags, AugmentationParams(), draws=draws,
+                          route=route, compute_dtype=torch.bfloat16)
+    ev[1].record()
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        proj = model(torch.cat([v1.images, v2.images]))["projection"]
+    z1, z2 = peclr_projections(proj[:mb], proj[mb:], v1.params, v2.params,
+                               augmentations=flags.active())
+    loss = ntxent_loss(z1, z2)
+    ev[2].record()
+    (loss / ACCUM).backward()
+    ev[3].record()
+    opt.step()
+    ev[4].record()
+    torch.cuda.synchronize()
+    names = ("augment", "forward", "backward", "update")
+    return {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
+
+
+def profile_step(torch, step, state, batch, gen):
+    """One step under torch.profiler: the union of the card's kernel
+    intervals against the span of the step's trace (the device's busy
+    share), and the kernels that take the most device time.  The profiler
+    slows the host, so the span is longer than an unprofiled step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, gen)
+        metrics["loss"].item()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        return state, {"device_time": "not measured (no CUDA events)"}
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, cur_start, cur_end = 0.0, spans[0][0], spans[0][1]
+    for start, end in spans[1:]:
+        if start > cur_end:
+            busy += cur_end - cur_start
+            cur_start, cur_end = start, end
+        else:
+            cur_end = max(cur_end, end)
+    busy += cur_end - cur_start
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (
+            e.time_range.end - e.time_range.start)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    return state, {
+        "profiled_wall_ms": wall_ms, "device_busy_ms": busy / 1e3,
+        "device_busy_share": busy / 1e3 / wall_ms,
+        "kernel_launches": len(kernels),
+        "top_kernels_ms": {name[:90]: us / 1e3 for name, us in top},
+    }
+
+
+def phase_pretrain(torch, dev):
+    """The RN50 PeCLR pretrain step on the card, its routes in turns."""
+    from peclr_tpu_torch.config.defaults import (
+        AugmentationParams,
+        peclr_pretrain_flags,
+    )
+    from peclr_tpu_torch.ops import augment
+    from peclr_tpu_torch.train.recipe import (
+        build_pretrain_state,
+        synthetic_pretrain_batch,
+    )
+    from peclr_tpu_torch.train.step import make_peclr_train_step
+
+    flags, params = peclr_pretrain_flags(), AugmentationParams()
+    n = MICROBATCH * ACCUM
+    model, state, opt = build_pretrain_state("50", batch=MICROBATCH,
+                                             accum=ACCUM, device=dev)
+    batch = synthetic_pretrain_batch(n, 224, SEED + 7, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    steps = {route: make_peclr_train_step(model, opt, flags, params,
+                                          accum=ACCUM, warp_route=route)
+             for route in PRETRAIN_ROUTES}
+    kernel_of = {"grouped": "shift_lerp_grouped",
+                 "matmul": "shift_lerp_matmul", "nhwc": "shift_lerp_flat"}
+
+    # the routes from one state and the same draws (also the warm-up)
+    draws = [augment.draw(gen, 2 * MICROBATCH, flags, params)
+             for _ in range(ACCUM)]
+    snapshot = ({k: v.clone() for k, v in model.state_dict().items()},
+                copy.deepcopy(opt.state_dict()))
+    first_loss = {}
+    for route in PRETRAIN_ROUTES:
+        model.load_state_dict(snapshot[0])
+        opt.load_state_dict(snapshot[1])
+        state.step = 0
+        state, metrics = steps[route](state, batch, gen, draws=draws)
+        first_loss[route] = metrics["loss"].item()
+        check(math.isfinite(first_loss[route]), f"{route}: loss not finite")
+    for route in PRETRAIN_ROUTES:
+        rel = abs(first_loss[route] / first_loss["grouped"] - 1.0)
+        check(rel <= 1e-2, f"first-step loss {route} vs grouped: rel {rel}")
+
+    # the main path: each route's counts set to 0 just before its run and
+    # read just after; the routes take turns
+    runs = {route: [] for route in PRETRAIN_ROUTES}
+    for rep in range(max(PRETRAIN_STEPS.values())):
+        for route in PRETRAIN_ROUTES:
+            if rep >= PRETRAIN_STEPS[route]:
+                continue
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            before = torch.cuda.memory_allocated(dev)
+            reset_counts()
+            t0 = time.perf_counter()
+            state, metrics = steps[route](state, batch, gen)
+            loss = metrics["loss"].item()  # synchronises
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = kernel_counts()
+            check(math.isfinite(loss), f"{route}: loss not finite")
+            for kname, launched in counts.items():
+                want = 2 * ACCUM if kname == kernel_of[route] else 0
+                check(launched == want, f"{route}: {kname} launched "
+                      f"{launched} times in a step, want {want}")
+            runs[route].append({
+                "loss": loss, "launches": counts, "seconds": seconds,
+                "ms_per_step": seconds * 1e3, "img_per_s": n / seconds,
+                "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
+                "allocated_before_bytes": before,
+            })
+    state, profiled = profile_step(torch, steps["grouped"], state, batch, gen)
+    breakdown = {route: microbatch_breakdown(torch, model, opt, batch,
+                                             draws[0], route)
+                 for route in ("grouped", "matmul")}
+    emit("pretrain", model="PeCLR RN50 + projection head, bf16 autocast",
+         microbatch=MICROBATCH, accum=ACCUM, images_per_step=n,
+         first_step_loss=first_loss, runs=runs,
+         microbatch_breakdown_ms=breakdown, profiled_grouped_step=profiled)
+    return runs
+
+
+def phase_pretrain_vs_cpu(torch, dev):
+    """The dry-run shape on the card and on the CPU, both in f32 (TF32 off)
+    with the same draws: loss within 1e-3 relative, BatchNorm running
+    statistics within 1e-3 of each tensor's scale."""
+    from peclr_tpu_torch.config.defaults import (
+        AugmentationParams,
+        peclr_pretrain_flags,
+    )
+    from peclr_tpu_torch.ops import augment
+    from peclr_tpu_torch.train.recipe import (
+        build_pretrain_state,
+        synthetic_pretrain_batch,
+    )
+    from peclr_tpu_torch.train.step import make_peclr_train_step
+
+    flags, params = peclr_pretrain_flags(), AugmentationParams(
+        resize_shape=(32, 32))
+    gen = torch.Generator().manual_seed(SEED + 9)
+    draws = [augment.draw(gen, 8, flags, params) for _ in range(2)]
+    batch = synthetic_pretrain_batch(8, 64, SEED + 9, device="cpu")
+    result = {}
+    for route in ("grouped", "matmul"):
+        states = {}
+        losses = {}
+        for where in ("cpu", dev):
+            model, state, opt = build_pretrain_state("18", batch=4, accum=2,
+                                                     device=where)
+            step = make_peclr_train_step(model, opt, flags, params, accum=2,
+                                         warp_route=route, precision="f32")
+            on = {k: v.to(where) for k, v in batch.items()}
+            state, metrics = step(state, on, None, draws=draws)
+            losses[str(where)] = metrics["loss"].item()
+            states[str(where)] = {k: v.cpu() for k, v in
+                                  model.state_dict().items()
+                                  if "running" in k}
+        cpu_loss, card_loss = losses["cpu"], losses[str(dev)]
+        rel = abs(card_loss / cpu_loss - 1.0)
+        check(rel <= 1e-3, f"{route}: RN18 loss card vs CPU rel {rel} > 1e-3")
+        worst = 0.0
+        for key, ref in states["cpu"].items():
+            err = (states[str(dev)][key] - ref).abs().max().item()
+            worst = max(worst, err / max(ref.abs().max().item(), 1e-12))
+        check(worst <= 1e-3, f"{route}: BN stats card vs CPU {worst} > 1e-3")
+        result[route] = {"loss_cpu": cpu_loss, "loss_card": card_loss,
+                         "loss_rel": rel, "bn_stats_worst_rel": worst}
+    emit("pretrain_vs_cpu", model="PeCLR RN18, 64 -> 32, accum 2, f32, "
+         "TF32 off", routes=result)
+
+
 # --------------------------------------------------------------------------
 # phase 4 / 5 inputs
 
@@ -281,12 +789,14 @@ def main() -> int:
 
     # ---- 2. build --------------------------------------------------------
     t0 = time.perf_counter()
-    per_source = build.build(["shift_lerp"])
+    per_source = build.build(["shift_lerp", "shift_lerp_matmul"])
     emit("build", seconds=time.perf_counter() - t0, per_source=per_source,
          arch="sm_90a")
 
     # ---- 3. kernel against plain -------------------------------------------
     kernel_rows = phase_kernel(torch, dev)
+    flat_rows = phase_flat_kernel(torch, dev)
+    matmul_rows = phase_matmul_kernel(torch, dev)
 
     # ---- 4. warp at the pred_fh geometry -------------------------------------
     frames = seeded_frames(N_FRAMES, SEED)
@@ -307,8 +817,10 @@ def main() -> int:
     check(got.dtype == torch.float32 and got.shape == (BATCH, 224, 224, 3),
           "warp output shape/dtype")
     check(warp_abs <= 2.5, f"warp kernel vs plain max_abs {warp_abs} > 2.5")
-    emit("warp", batch=BATCH, out_hw=[224, 224], compute_dtype="bfloat16",
-         max_abs=warp_abs, tolerance=2.5, ms=warp_ms, plain_ms=plain_warp_ms)
+    emit("warp", geometry="pred_fh", batch=BATCH, out_hw=[224, 224],
+         compute_dtype="bfloat16", max_abs=warp_abs, tolerance=2.5,
+         ms=warp_ms, plain_ms=plain_warp_ms)
+    phase_recipe_warp(torch, dev)
 
     # ---- 5. the slice: two-pass RN50 inference ---------------------------------
     model = RN25DPose("50")
@@ -366,6 +878,7 @@ def main() -> int:
                 model, lerp_in_kernel=lerp_in_kernel, device=dev)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats(dev)
+            before = torch.cuda.memory_allocated(dev)
             reset_counts()
             t0 = time.perf_counter()
             outs = list(pipelined(
@@ -382,6 +895,7 @@ def main() -> int:
                 "img_per_s": N_FRAMES / seconds,
                 "ms_per_batch": seconds / len(outs) * 1e3,
                 "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
+                "allocated_before_bytes": before,
                 "batches": len(outs),
             }
             kp3d = np.concatenate([o for _, o in outs])
@@ -443,30 +957,51 @@ def main() -> int:
               and bool(np.isfinite(out["kp3d"]).all()),
               f"serving request of {size}")
     emit("serving", batch=32, image_size=128, requests=latencies)
+    del sess, model, cpu_model
+    torch.cuda.empty_cache()
 
-    # ---- 7. kernels line ---------------------------------------------------------
-    def summary(name, replaces, launches, lerp, timed_case):
-        rows = [r for r in kernel_rows if r["lerp"] == lerp]
+    # ---- 7. the pretrain step ------------------------------------------------------
+    pretrain_runs = phase_pretrain(torch, dev)
+    phase_pretrain_vs_cpu(torch, dev)
+
+    # ---- 8. kernels line ---------------------------------------------------------
+    def summary(name, source, replaces, launches, rows, timed_case, **extra):
         timed = next(r for r in rows if r["case"] == timed_case)
         return {
-            "name": name, "route": "cuda",
-            "source": "peclr_tpu_torch/csrc/shift_lerp.cu",
+            "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
             "max_abs_err": max(r["max_abs"] for r in rows),
             "ms": timed["ms"], "plain_ms": timed["plain_ms"],
             "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
             "library_ms": timed["library_ms"], "timed_case": timed_case,
+            **extra,
         }
 
+    shift_src = "peclr_tpu_torch/csrc/shift_lerp.cu"
     kernels = [
-        summary("shift_lerp_grouped",
+        summary("shift_lerp_grouped", shift_src,
                 "peclr_tpu/ops/pallas/barrel_shift.py:100",
-                runs["lerp_in_kernel"][0]["launches"], True,
-                "pass2_bf16_to_bf16"),
-        summary("shift_raw_grouped",
+                runs["lerp_in_kernel"][0]["launches"],
+                [r for r in kernel_rows if r["lerp"]], "pass2_bf16_to_bf16",
+                launches_per_pretrain_step=pretrain_runs["grouped"][0][
+                    "launches"]["shift_lerp_grouped"]),
+        summary("shift_raw_grouped", shift_src,
                 "peclr_tpu/ops/pallas/barrel_shift.py:118",
-                runs["raw_kernel"][0]["raw_launches"], False,
-                "raw_pass2_bf16"),
+                runs["raw_kernel"][0]["raw_launches"],
+                [r for r in kernel_rows if not r["lerp"]], "raw_pass2_bf16"),
+        summary("shift_lerp_flat", shift_src,
+                "peclr_tpu/ops/pallas/barrel_shift.py:163",
+                pretrain_runs["nhwc"][0]["launches"]["shift_lerp_flat"],
+                flat_rows, "flat_pass2_bf16_to_bf16"),
+        summary("shift_lerp_matmul",
+                "peclr_tpu_torch/csrc/shift_lerp_matmul.cu",
+                "peclr_tpu/ops/pallas/barrel_shift.py:392",
+                pretrain_runs["matmul"][0]["launches"]["shift_lerp_matmul"],
+                matmul_rows, "matmul_pass1_u8_to_bf16",
+                grouped_route_ms=next(
+                    r for r in matmul_rows
+                    if r["case"] == "matmul_pass1_u8_to_bf16")[
+                        "grouped_route_ms"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     emit("done", seconds=time.perf_counter() - t_start)

@@ -37,37 +37,26 @@ def seeded_intrinsics(n: int, seed: int) -> np.ndarray:
     return K
 
 
-def seeded_rn25d_variables(size: str, seed: int) -> Dict[str, dict]:
-    """RN25DPose weights in the reference's flax layout ({'params',
-    'batch_stats'} nested dicts of float32 numpy arrays), made from a seed:
-    He-normal convs, eval-mode BatchNorm statistics, a damped last BN in
-    each residual branch, and an fc whose bias places the keypoints inside
-    the 224 crop.  `models.port.rn25d_variables_to_state_dict` carries them
-    into the port."""
-    from peclr_tpu_torch.models import RN25DPose
-    from peclr_tpu_torch.models.port import rn25d_mapping
-    from peclr_tpu_torch.models.resnet import RESNET_SPECS
-
+def _seeded_variables(shapes, mapping, seed: int, last_bn: str,
+                      fill=None) -> Dict[str, dict]:
+    """Weights in the reference's flax layout made from a seed: He-normal
+    convs, dense layers at 1/sqrt(fan_in), eval-mode BatchNorm statistics,
+    a damped last BN in each residual branch.  `fill(torch_name, shape, rng)`
+    may give an entry its own value."""
     rng = np.random.default_rng(seed)
-    shapes = {k: tuple(v.shape) for k, v in RN25DPose(size).state_dict().items()}
-    last_bn = ".bn3." if RESNET_SPECS[size][0] == "bottleneck" else ".bn2."
     variables: Dict[str, dict] = {"params": {}, "batch_stats": {}}
-    for torch_name, coll, path, kind in rn25d_mapping(size):
+    for torch_name, coll, path, kind in mapping:
         shape = shapes[torch_name]
         field = torch_name.rsplit(".", 1)[-1]
-        if kind == "conv":
+        value = fill(torch_name, shape, rng) if fill else None
+        if value is not None:
+            pass
+        elif kind == "conv":
             fan_in = shape[1] * shape[2] * shape[3]
             value = rng.normal(0, np.sqrt(2.0 / fan_in), shape)
             value = value.transpose(2, 3, 1, 0)  # OIHW -> HWIO
         elif kind == "dense_w":
-            scale = (0.02 if torch_name.startswith("backend_model.fc")
-                     else np.sqrt(1.0 / shape[1]))
-            value = rng.normal(0, scale, shape).T  # (out, in) -> (in, out)
-        elif torch_name == "backend_model.fc.bias":
-            value = np.zeros(shape)
-            kp = value[:63].reshape(21, 3)
-            kp[:, :2] = rng.uniform(70, 150, (21, 2))
-            kp[:, 2] = rng.uniform(-0.1, 0.1, 21)
+            value = rng.normal(0, np.sqrt(1.0 / shape[1]), shape).T
         elif field == "running_var":
             value = rng.uniform(0.5, 1.5, shape)
         elif field == "weight":  # BN scale
@@ -80,3 +69,46 @@ def seeded_rn25d_variables(size: str, seed: int) -> Dict[str, dict]:
             node = node.setdefault(key, {})
         node[path[-1]] = np.asarray(value, np.float32)
     return variables
+
+
+def _last_bn(size: str) -> str:
+    from peclr_tpu_torch.models.resnet import RESNET_SPECS
+
+    return ".bn3." if RESNET_SPECS[size][0] == "bottleneck" else ".bn2."
+
+
+def seeded_rn25d_variables(size: str, seed: int) -> Dict[str, dict]:
+    """RN25DPose weights in the reference's flax layout ({'params',
+    'batch_stats'} nested dicts of float32 numpy arrays), made from a seed,
+    with an fc whose bias places the keypoints inside the 224 crop.
+    `models.port.rn25d_variables_to_state_dict` carries them into the
+    port."""
+    from peclr_tpu_torch.models import RN25DPose
+    from peclr_tpu_torch.models.port import rn25d_mapping
+
+    shapes = {k: tuple(v.shape) for k, v in RN25DPose(size).state_dict().items()}
+
+    def fill(torch_name, shape, rng):
+        if torch_name == "backend_model.fc.weight":
+            return rng.normal(0, 0.02, shape).T  # (out, in) -> (in, out)
+        if torch_name == "backend_model.fc.bias":
+            value = np.zeros(shape)
+            kp = value[:63].reshape(21, 3)
+            kp[:, :2] = rng.uniform(70, 150, (21, 2))
+            kp[:, 2] = rng.uniform(-0.1, 0.1, 21)
+            return value
+        return None
+
+    return _seeded_variables(shapes, rn25d_mapping(size), seed,
+                             _last_bn(size), fill)
+
+
+def seeded_peclr_variables(size: str, seed: int) -> Dict[str, dict]:
+    """PeCLRModel weights (encoder + projection head) in the reference's
+    flax layout, made from a seed; `models.port.peclr_variables_to_state_dict`
+    carries them into the port."""
+    from peclr_tpu_torch.models import PeCLRModel
+    from peclr_tpu_torch.models.port import peclr_mapping
+
+    shapes = {k: tuple(v.shape) for k, v in PeCLRModel(size).state_dict().items()}
+    return _seeded_variables(shapes, peclr_mapping(size), seed, _last_bn(size))

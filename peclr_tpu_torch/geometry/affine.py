@@ -19,6 +19,21 @@ def _stack3(rows) -> torch.Tensor:
     return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
 
 
+def rotation_about_center(angle_deg, center_x, center_y,
+                          scale=1.0) -> torch.Tensor:
+    """(..., 3, 3) homogeneous rotation about (center_x, center_y), as
+    cv2.getRotationMatrix2D: [[a, b, (1-a)cx - b*cy], [-b, a, b*cx + (1-a)cy]]
+    with a = cos·scale, b = sin·scale."""
+    rad = torch.deg2rad(_f32(angle_deg))
+    a = torch.cos(rad) * scale
+    b = torch.sin(rad) * scale
+    tx = (1.0 - a) * center_x - b * center_y
+    ty = b * center_x + (1.0 - a) * center_y
+    zeros = torch.zeros_like(a)
+    ones = torch.ones_like(a)
+    return _stack3([[a, b, tx], [-b, a, ty], [zeros, zeros, ones]])
+
+
 def translation(tx, ty) -> torch.Tensor:
     """(..., 3, 3) translation matrix."""
     tx = _f32(tx)

@@ -1,4 +1,11 @@
-"""The z-root refinement MLP (port of peclr_tpu/models/heads.py:51-106).
+"""Model heads: the SimCLR projection MLP (port of
+peclr_tpu/models/heads.py:19-48) and the z-root refinement MLP (:51-106).
+
+ProjectionHead: Linear(E -> 512, bias) -> BatchNorm1d -> ReLU ->
+Linear(512 -> 128, no bias), a Sequential whose indices 0/1/3 are the
+reference checkpoint's `projection_head.N` keys; its output is float32.
+
+ZrootRefineMLP:
 
 Closed-form scale-normalized root depth from the middle_mcp (3) <->
 middle_pip (8) bone with unit length (Iqbal et al. eq 6-7), clamped to
@@ -11,6 +18,22 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+
+from peclr_tpu_torch.models.batchnorm import BatchNorm1d
+
+
+class ProjectionHead(nn.Sequential):
+    def __init__(self, input_dim: int = 2048, hidden_dim: int = 512,
+                 output_dim: int = 128):
+        super().__init__(
+            nn.Linear(input_dim, hidden_dim),
+            BatchNorm1d(hidden_dim),
+            nn.ReLU(),
+            nn.Linear(hidden_dim, output_dim, bias=False),
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x).float()
 
 
 class ZrootRefineMLP(nn.Module):

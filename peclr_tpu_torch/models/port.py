@@ -1,5 +1,6 @@
 """Carry weights across from the reference's flax variables (port of the
-name tables of peclr_tpu/models/port.py:34-133 and :282-295).
+name tables of peclr_tpu/models/port.py:34-133, :184-197, :226-237 and
+:282-295).
 
 Each table entry is (torch_name, collection, flax_path, kind) with kind
 'conv' (HWIO -> OIHW), 'dense_w' ((in, out) -> (out, in)) or 'copy'.
@@ -52,6 +53,38 @@ def resnet_mapping(size: str) -> List[Entry]:
     return entries
 
 
+def projection_head_mapping() -> List[Entry]:
+    """Sequential(Linear, BatchNorm1d, ReLU, Linear-no-bias) ->
+    ProjectionHead{lin1, bn, lin2}."""
+    return [
+        ("0.weight", "params", ("lin1", "kernel"), "dense_w"),
+        ("0.bias", "params", ("lin1", "bias"), "copy"),
+        *_bn_entries("1", ("bn",)),
+        ("3.weight", "params", ("lin2", "kernel"), "dense_w"),
+    ]
+
+
+#: the reference's PeCLR encoder packs the backbone into a Sequential
+#: `features`: 0 conv1, 1 bn1, 2 relu, 3 max pool, 4..7 layer1..layer4
+_FEATURES_INDEX = {"conv1": "0", "bn1": "1", "layer1": "4", "layer2": "5",
+                   "layer3": "6", "layer4": "7"}
+
+
+def _features_name(torch_name: str) -> str:
+    """torchvision name -> 'features.N.*' Sequential name."""
+    head, rest = torch_name.split(".", 1)
+    return f"features.{_FEATURES_INDEX[head]}.{rest}"
+
+
+def peclr_mapping(size: str) -> List[Entry]:
+    """Reference PeCLR checkpoint keys <-> PeCLRModel flax variables."""
+    encoder = [("encoder." + _features_name(tn), coll, ("encoder",) + fp, kind)
+               for tn, coll, fp, kind in resnet_mapping(size)]
+    head = [("projection_head." + tn, coll, ("projection_head",) + fp, kind)
+            for tn, coll, fp, kind in projection_head_mapping()]
+    return encoder + head
+
+
 def zroot_mlp_mapping() -> List[Entry]:
     """Sequential(Linear, BN, LeakyReLU, Linear, BN, LeakyReLU, Linear) ->
     ZrootRefineMLP{lin1, bn1, lin2, bn2, lin3}."""
@@ -101,14 +134,14 @@ def _export_value(v, kind: str) -> np.ndarray:
     return v
 
 
-def rn25d_variables_to_state_dict(variables: Mapping, size: str
-                                  ) -> Dict[str, torch.Tensor]:
-    """RN25DPose flax variables ({'params', 'batch_stats'} nested dicts of
-    numpy arrays) -> a state dict for the port's RN25DPose that loads with
-    `load_state_dict(strict=True)`.  `num_batches_tracked` is set to 0."""
+def variables_to_state_dict(variables: Mapping, mapping: List[Entry]
+                            ) -> Dict[str, torch.Tensor]:
+    """Flax variables ({'params', 'batch_stats'} nested dicts of numpy
+    arrays) -> a state dict named by `mapping`; `num_batches_tracked` is set
+    to 0 beside each running variance."""
     flat = flatten(variables)
     out: Dict[str, torch.Tensor] = {}
-    for torch_name, coll, flax_path, kind in rn25d_mapping(size):
+    for torch_name, coll, flax_path, kind in mapping:
         full = (coll,) + flax_path
         if full not in flat:
             raise KeyError(f"missing flax variable: {'/'.join(full)}")
@@ -117,3 +150,17 @@ def rn25d_variables_to_state_dict(variables: Mapping, size: str
             out[torch_name.replace("running_var", "num_batches_tracked")] = (
                 torch.zeros((), dtype=torch.int64))
     return out
+
+
+def rn25d_variables_to_state_dict(variables: Mapping, size: str
+                                  ) -> Dict[str, torch.Tensor]:
+    """RN25DPose flax variables -> a state dict for the port's RN25DPose
+    that loads with `load_state_dict(strict=True)`."""
+    return variables_to_state_dict(variables, rn25d_mapping(size))
+
+
+def peclr_variables_to_state_dict(variables: Mapping, size: str
+                                  ) -> Dict[str, torch.Tensor]:
+    """PeCLRModel flax variables -> a state dict for the port's PeCLRModel
+    that loads with `load_state_dict(strict=True)`."""
+    return variables_to_state_dict(variables, peclr_mapping(size))

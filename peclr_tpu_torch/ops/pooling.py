@@ -1,4 +1,9 @@
-"""The ResNet stem pool (port of peclr_tpu/ops/pooling.py, forward only)."""
+"""The ResNet stem pool (port of peclr_tpu/ops/pooling.py).
+
+The backward is autograd's: torch routes each output gradient to the first
+row-major argmax of its window, one position, which is what the
+reference's pool computes (`tests/test_pooling.py`; ties are common at the
+exact zeros after a ReLU)."""
 
 from __future__ import annotations
 

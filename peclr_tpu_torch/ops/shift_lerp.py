@@ -1,21 +1,28 @@
-"""Grouped per-row shift + fractional lerp: the warp's row-shift kernel.
+"""Per-row shift + fractional lerp: the warp's row-shift kernels.
 
-Port of `fused_shift_lerp_grouped` (peclr_tpu/ops/pallas/barrel_shift.py),
-whose two Pallas bodies `_kernel(grouped=True)` and `_kernel_raw` become one
+Port of `fused_shift_lerp_grouped` and `fused_shift_lerp`
+(peclr_tpu/ops/pallas/barrel_shift.py), whose Pallas bodies
+`_kernel(grouped=True)`, `_kernel_raw` and `_kernel(grouped=False)` become one
 templated CUDA kernel, `csrc/shift_lerp.cu` (its header says how it is
-designed and what bounds it).  G planes of N rows share one shift per row:
+designed and what bounds it).  Grouped: G planes of N rows share one shift
+per row:
 
   lerp: out[g, n, u] = x[g, n, u + k_n] * (1 - f_n) + x[g, n, u + k_n + 1] * f_n
   raw:  out[g, n, u] = x[g, n, u + k_n]
 
-with taps outside [0, W) reading zero and k_n clamped to [-(out + 2), W], so a
-clamped row comes out all zero.  The lerp runs in f32 and is cast to the
-output type; the raw window keeps the input type, bit for bit.
+Flat: NHWC rows with C channels folded in, taps C elements apart:
 
-`fused_shift_lerp_grouped` launches the kernel for CUDA tensors and counts
-each launch in `fused_shift_lerp_grouped.launches` (lerp) or
-`fused_shift_lerp_grouped.raw_launches` (raw).  CPU tensors take
-`shift_lerp_grouped_plain`, the PyTorch version of the same arithmetic.
+  out[n, u*C + c] = x[n, (u + k_n)*C + c] * (1 - f_n) + x[n, (u + k_n + 1)*C + c] * f_n
+
+Taps outside the row read zero and k_n is clamped to [-(out + 2), W] (in
+pixels), so a clamped row comes out all zero.  The lerp runs in f32 and is
+cast to the output type; the raw window keeps the input type, bit for bit.
+
+`fused_shift_lerp_grouped` and `fused_shift_lerp` launch the kernel for CUDA
+tensors and count each launch (`fused_shift_lerp_grouped.launches` for the
+lerp, `.raw_launches` for the raw mode, `fused_shift_lerp.launches`).  CPU
+tensors take `shift_lerp_grouped_plain` / `shift_lerp_flat_plain`, the
+PyTorch versions of the same arithmetic.
 """
 
 from __future__ import annotations
@@ -98,9 +105,24 @@ def _library() -> ctypes.CDLL:
             ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
             ctypes.c_void_p,
         ]
+        flat = lib.peclr_shift_lerp_flat
+        flat.restype = ctypes.c_int
+        flat.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+            ctypes.c_void_p,
+        ]
         lib.peclr_cuda_error_string.restype = ctypes.c_char_p
         lib.peclr_cuda_error_string.argtypes = [ctypes.c_int]
     return lib
+
+
+def _raise_on(rc: int, lib: ctypes.CDLL, what: str) -> None:
+    if rc != 0:
+        reason = ("unsupported dtypes" if rc < 0 else
+                  lib.peclr_cuda_error_string(rc).decode())
+        raise RuntimeError(f"{what} kernel launch failed: {reason}")
 
 
 def fused_shift_lerp_grouped(rows3: torch.Tensor, k: torch.Tensor,
@@ -129,10 +151,7 @@ def fused_shift_lerp_grouped(rows3: torch.Tensor, k: torch.Tensor,
             f.data_ptr() if lerp else None, out.data_ptr(),
             _DTYPE_CODES[out_dtype], int(lerp), g, n, w, out_elems, stream,
         )
-    if rc != 0:
-        reason = ("unsupported dtypes" if rc < 0 else
-                  lib.peclr_cuda_error_string(rc).decode())
-        raise RuntimeError(f"shift_lerp kernel launch failed: {reason}")
+    _raise_on(rc, lib, "shift_lerp")
     if lerp:
         fused_shift_lerp_grouped.launches += 1
     else:
@@ -142,3 +161,69 @@ def fused_shift_lerp_grouped(rows3: torch.Tensor, k: torch.Tensor,
 
 fused_shift_lerp_grouped.launches = 0
 fused_shift_lerp_grouped.raw_launches = 0
+
+
+def shift_lerp_flat_plain(rows: torch.Tensor, k: torch.Tensor,
+                          f: torch.Tensor, out_elems: int, c: int,
+                          out_dtype: torch.dtype = torch.bfloat16
+                          ) -> torch.Tensor:
+    """PyTorch version of the flat kernel: pad, gather, lerp in f32."""
+    n, w = rows.shape
+    kk = k.to(torch.int64).clamp(-(out_elems // c + 2), w // c) * c
+    # padded[p] = rows[p - pad]; taps u + kk and u + kk + c land in
+    # [0, w + out_elems + c) of the padded row for the clamped k
+    pad = (out_elems // c + 2) * c
+    padded = F.pad(rows, (pad, out_elems + c))
+    idx = kk[:, None] + pad + torch.arange(out_elems + c,
+                                           device=rows.device)[None, :]
+    window = torch.gather(padded, 1, idx).to(torch.float32)
+    fr = f.to(torch.float32)[:, None]
+    return (window[:, :-c] * (1.0 - fr) + window[:, c:] * fr).to(out_dtype)
+
+
+def fused_shift_lerp(rows: torch.Tensor, k: torch.Tensor, f: torch.Tensor,
+                     out_elems: int, c: int,
+                     out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """rows (N, W*C) uint8/bf16/f32 flattened pixel rows; k (N,) int32 pixel
+    shifts; f (N,) f32 fractions -> (N, out_elems) out_dtype (bf16 or f32).
+    Any N, W, C and out_elems."""
+    if rows.device.type == "cpu":
+        return shift_lerp_flat_plain(rows, k, f, out_elems, c, out_dtype)
+    if rows.device.type != "cuda":
+        raise ValueError(f"no shift kernel for device {rows.device}")
+    if rows.dim() != 2 or c < 1:
+        raise ValueError(f"rows must be (N, W*C) with C >= 1, got "
+                         f"{tuple(rows.shape)}, C = {c}")
+    _check_cuda_operands(rows[None], k, f, out_elems, out_dtype, True)
+    n, w = rows.shape
+    out = torch.empty((n, out_elems), dtype=out_dtype, device=rows.device)
+    lib = _library()
+    with torch.cuda.device(rows.device):
+        stream = torch.cuda.current_stream(rows.device).cuda_stream
+        rc = lib.peclr_shift_lerp_flat(
+            rows.data_ptr(), _DTYPE_CODES[rows.dtype], k.data_ptr(),
+            f.data_ptr(), out.data_ptr(), _DTYPE_CODES[out_dtype], n, w,
+            out_elems, c, stream,
+        )
+    _raise_on(rc, lib, "shift_lerp_flat")
+    fused_shift_lerp.launches += 1
+    return out
+
+
+fused_shift_lerp.launches = 0
+
+
+def shift_rows(images: torch.Tensor, offsets: torch.Tensor, out_w: int,
+               lerp_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Counterpart of the reference's shift_rows_pallas: images (B, H, W, C),
+    real offsets (B, H) -> (B, H, out_w, C) lerp_dtype, each row shifted by
+    its offset through the flat kernel."""
+    b, h, w, c = images.shape
+    n = b * h
+    k_true = torch.floor(offsets)
+    # clamp before the int conversion; the kernel clamps to the same range
+    k = k_true.clamp(-(out_w + 2), w).to(torch.int32).reshape(n)
+    f = (offsets - k_true).to(torch.float32).reshape(n)
+    out = fused_shift_lerp(images.reshape(n, w * c), k, f, out_w * c, c,
+                           out_dtype=lerp_dtype)
+    return out.reshape(b, h, out_w, c)

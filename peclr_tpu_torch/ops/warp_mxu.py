@@ -1,5 +1,5 @@
 """Two-pass affine warp: per-row shifts plus banded tap matmuls (port of
-peclr_tpu/ops/warp_mxu.py along its channel-first route, :302-457).
+peclr_tpu/ops/warp_mxu.py, :302-457, with its three routes).
 
   inverse map (out -> src):  x_s = A·i + B·j + TX ;  y_s = C·i + D·j + TY
 
@@ -11,15 +11,28 @@ peclr_tpu/ops/warp_mxu.py along its channel-first route, :302-457).
       W2[v, j] = tap(D·j − v).
 
 The interpolation is a lerp of lerps; the border is zero outside the source,
-enforced by an exact validity mask from the direct inverse map.  Channels
-lead during both passes, so each shift row is a single-channel pixel row.
+enforced by an exact validity mask from the direct inverse map.  The route
+names which kernels run each pass:
+
+  "grouped"  channels lead, each shift row is a single-channel pixel row:
+             the grouped shift kernel, then torch.matmul (the reference's
+             default TPU route);
+  "matmul"   channels lead, the shift, lerp and tap matmul of each pass in
+             one kernel (ops/shift_lerp_matmul.py) with transposed tap
+             matrices (the reference's PECLR_SHIFT_FUSE=matmul);
+  "nhwc"     pixels keep their channels, the flat shift kernel on (W*C)
+             rows, then einsum (the reference's _shift_rows_any route).
 """
 
 from __future__ import annotations
 
 import torch
 
+from peclr_tpu_torch.ops import shift_lerp
 from peclr_tpu_torch.ops.shift_lerp import fused_shift_lerp_grouped
+from peclr_tpu_torch.ops.shift_lerp_matmul import fused_shift_lerp_matmul
+
+ROUTES = ("grouped", "matmul", "nhwc")
 
 
 def _inv3_affine(m: torch.Tensor) -> torch.Tensor:
@@ -41,25 +54,32 @@ def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
 
 
-def _tap_iotas(n_in: int, n_out: int, device):
-    i = torch.arange(n_out, dtype=torch.float32, device=device)[None, None, :]
-    u = torch.arange(n_in, dtype=torch.float32, device=device)[None, :, None]
-    return i, u
+def _tap_iotas(n_in: int, n_out: int, device, transposed: bool = False):
+    """Broadcast iotas for the tap matrices: (B, n_in, n_out), or
+    (B, n_out, n_in) when transposed (taps minor, the fused kernel's
+    layout)."""
+    i = torch.arange(n_out, dtype=torch.float32, device=device)
+    u = torch.arange(n_in, dtype=torch.float32, device=device)
+    if transposed:
+        return i[None, :, None], u[None, None, :]
+    return i[None, None, :], u[None, :, None]
 
 
-def _tent_matrix(slopes: torch.Tensor, n_in: int, n_out: int) -> torch.Tensor:
+def _tent_matrix(slopes: torch.Tensor, n_in: int, n_out: int,
+                 transposed: bool = False) -> torch.Tensor:
     """(B, n_in, n_out) banded bilinear-tap matrix:
     M[b, u, i] = max(0, 1 − |slope_b·i − u|)."""
-    i, u = _tap_iotas(n_in, n_out, slopes.device)
+    i, u = _tap_iotas(n_in, n_out, slopes.device, transposed)
     pos = slopes[:, None, None] * i
     return torch.clamp_min(1.0 - torch.abs(pos - u), 0.0)
 
 
-def _area_matrix(slopes: torch.Tensor, n_in: int, n_out: int) -> torch.Tensor:
+def _area_matrix(slopes: torch.Tensor, n_in: int, n_out: int,
+                 transposed: bool = False) -> torch.Tensor:
     """(B, n_in, n_out) box-filter (cv2 INTER_AREA) matrix for downscaling:
     output pixel i averages source [s·i, s·(i+1)); the tent taps where
     s <= 1 (cv2's INTER_AREA is bilinear on upscale)."""
-    i, u = _tap_iotas(n_in, n_out, slopes.device)
+    i, u = _tap_iotas(n_in, n_out, slopes.device, transposed)
     s = slopes[:, None, None]
     overlap = torch.clamp(
         torch.minimum(s * (i + 1.0), u + 1.0) - torch.maximum(s * i, u),
@@ -116,17 +136,78 @@ def _default_compute_dtype(device: torch.device) -> torch.dtype:
     return torch.bfloat16 if device.type == "cuda" else torch.float32
 
 
+def _warp_matmul(x, rows_off, cols_off, alpha, D, u_size, v_size, out_hw,
+                 tap_matrix, compute_dtype):
+    """Both passes through the fused shift+lerp+matmul kernel.  Pass 1 reads
+    the (C, B, H, W) canvases and writes (C, B, out_w, H), transposed for
+    pass 2; taps past row H read zero, so H needs no padding."""
+    out_h, out_w = out_hw
+    xc = x.permute(3, 0, 1, 2).contiguous()  # (C, B, H, W)
+
+    def shifts(offsets, window, width):
+        # clamp before the int conversion; the kernel clamps to the same range
+        k_true = torch.floor(offsets)
+        k = k_true.clamp(-(window + 2), width).to(torch.int32).reshape(-1)
+        return k, (offsets - k_true).to(torch.float32).reshape(-1)
+
+    k1, f1 = shifts(rows_off, u_size, xc.shape[3])
+    w1_t = tap_matrix(alpha, u_size, out_w, transposed=True).to(compute_dtype)
+    tmp = fused_shift_lerp_matmul(xc, k1, f1, w1_t, out_dtype=compute_dtype)
+    k2, f2 = shifts(cols_off, v_size, tmp.shape[3])
+    w2_t = tap_matrix(D, v_size, out_h, transposed=True).to(compute_dtype)
+    out = fused_shift_lerp_matmul(tmp, k2, f2, w2_t,
+                                  out_dtype=torch.float32)  # (C, B, out_h, out_w)
+    return out.permute(1, 2, 3, 0)
+
+
+def _warp_nhwc(x, rows_off, cols_off, w1, w2, u_size, v_size, compute_dtype):
+    """Both passes through the flat (NHWC) shift kernel, each followed by a
+    per-image tap einsum."""
+    shifted = shift_lerp.shift_rows(x, rows_off, u_size,
+                                    compute_dtype)  # (B, H, U, C)
+    tmp = torch.einsum("bhuc,bui->bhic", shifted, w1)  # compute_dtype
+    tmp_t = tmp.transpose(1, 2)  # (B, out_w, H, C)
+    shifted_v = shift_lerp.shift_rows(tmp_t, cols_off, v_size,
+                                      compute_dtype)  # (B, out_w, V, C)
+    # f32 products and sums of the compute-dtype operands
+    return torch.einsum("bivc,bvj->bjic", shifted_v.to(torch.float32),
+                        w2.to(torch.float32))  # (B, out_h, out_w, C)
+
+
+def _warp_grouped(x, rows_off, cols_off, w1, w2, u_size, v_size,
+                  compute_dtype, lerp_in_kernel):
+    """Both passes through the grouped shift kernel on channel-leading
+    planes, each followed by a torch.matmul with the tap matrix."""
+    xc = x.permute(3, 0, 1, 2).contiguous()  # (C, B, H, W)
+    shifted = _shift_pass_cfirst(xc, rows_off, u_size, compute_dtype,
+                                 lerp_in_kernel)  # (C, B, H, U)
+    tmp = torch.matmul(shifted, w1)  # (C, B, H, out_w), compute_dtype
+    tmp_t = tmp.transpose(2, 3).contiguous()  # (C, B, out_w, H)
+    shifted_v = _shift_pass_cfirst(tmp_t, cols_off, v_size, compute_dtype,
+                                   lerp_in_kernel)  # (C, B, out_w, V)
+    # f32 products and sums of the compute-dtype operands
+    out = torch.matmul(shifted_v.to(torch.float32), w2.to(torch.float32))
+    return out.permute(1, 3, 2, 0)  # (B, out_h, out_w, C)
+
+
 def affine_warp_mxu(
     images: torch.Tensor, matrices: torch.Tensor, out_hw, fill_value=0.0,
     max_scale: float = 1.96, compute_dtype=None, interp: str = "linear",
     max_scale_x=None, max_scale_y=None, lerp_in_kernel: bool = True,
+    route: str = "grouped",
 ) -> torch.Tensor:
     """images (B, H, W, C) uint8 or float, matrices (B, 3, 3) source -> out
     -> (B, out_h, out_w, C) float32.
 
     Rotations must stay within ±90°, and the horizontal slope |det/D| and
     the vertical slope |D| within max_scale_x / max_scale_y (in units of
-    out-size): positions beyond the static windows contribute zero."""
+    out-size): positions beyond the static windows contribute zero.
+    `route` is one of ROUTES (module docstring); `lerp_in_kernel=False`
+    (the grouped kernel's raw mode) applies to the grouped route only."""
+    if route not in ROUTES:
+        raise ValueError(f"route={route!r}, want one of {ROUTES}")
+    if not lerp_in_kernel and route != "grouped":
+        raise ValueError("lerp_in_kernel=False is a mode of the grouped route")
     device = images.device
     if compute_dtype is None:
         compute_dtype = _default_compute_dtype(device)
@@ -152,19 +233,18 @@ def affine_warp_mxu(
     rows_off = beta[:, None] * ar_h[None, :] + gamma[:, None]
     cols_off = C[:, None] * ar_w[None, :] + TY[:, None]
     tap_matrix = _area_matrix if interp == "area" else _tent_matrix
-    w1 = tap_matrix(alpha, u_size, out_w).to(compute_dtype)
-    w2 = tap_matrix(D, v_size, out_h).to(compute_dtype)
-
-    xc = x.permute(3, 0, 1, 2).contiguous()  # (C, B, H, W)
-    shifted = _shift_pass_cfirst(xc, rows_off, u_size, compute_dtype,
-                                 lerp_in_kernel)  # (C, B, H, U)
-    tmp = torch.matmul(shifted, w1)  # (C, B, H, out_w), compute_dtype
-    tmp_t = tmp.transpose(2, 3).contiguous()  # (C, B, out_w, H)
-    shifted_v = _shift_pass_cfirst(tmp_t, cols_off, v_size, compute_dtype,
-                                   lerp_in_kernel)  # (C, B, out_w, V)
-    # f32 products and sums of the compute-dtype operands
-    out = torch.matmul(shifted_v.to(torch.float32), w2.to(torch.float32))
-    out = out.permute(1, 3, 2, 0)  # (B, out_h, out_w, C)
+    if route == "matmul":
+        out = _warp_matmul(x, rows_off, cols_off, alpha, D, u_size, v_size,
+                           out_hw, tap_matrix, compute_dtype)
+    else:
+        w1 = tap_matrix(alpha, u_size, out_w).to(compute_dtype)
+        w2 = tap_matrix(D, v_size, out_h).to(compute_dtype)
+        if route == "nhwc":
+            out = _warp_nhwc(x, rows_off, cols_off, w1, w2, u_size, v_size,
+                             compute_dtype)
+        else:
+            out = _warp_grouped(x, rows_off, cols_off, w1, w2, u_size,
+                                v_size, compute_dtype, lerp_in_kernel)
 
     # exact border mask from the direct inverse map
     ys = torch.arange(out_h, dtype=torch.float32, device=device)

@@ -1,0 +1,129 @@
+"""The PeCLR pretrain step (port of peclr_tpu/train/step.py): augmentation
++ encoder + equivariant NT-Xent + gradient accumulation + one optimizer
+update.
+
+One step over accum microbatches of B canvases:
+
+    for each microbatch:
+        augment_pair  -> two views + their parameters   (the warp's kernels)
+        encoder+head  -> projections of both views, one batch
+        peclr_projections -> inverse transforms in projection space
+        ntxent_loss   -> the microbatch's loss; backward adds loss/accum
+    one optimizer update (LARS + Adam + schedule)
+
+Loss and gradients are means over the microbatches.  The BatchNorm running
+statistics chain through the microbatches with momentum 0.1 each, which is
+what the reference's stats_accum="outside" closed form computes.  On the
+card the model runs under bf16 autocast with f32 parameters and the warp in
+bf16 (the reference's precision="bf16"); precision="f32", and the CPU, run
+both in f32.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence
+
+import torch
+from torch import nn
+
+from peclr_tpu_torch.config.defaults import AugmentationFlags, AugmentationParams
+from peclr_tpu_torch.losses.equivariance import peclr_projections
+from peclr_tpu_torch.losses.ntxent import ntxent_loss
+from peclr_tpu_torch.ops.augment import augment_pair
+from peclr_tpu_torch.train.optimizer import PretrainOptimizer
+from peclr_tpu_torch.train.state import TrainState
+
+PRECISIONS = ("bf16", "f32")
+
+
+def projection_stats(proj: torch.Tensor, name: str) -> Dict[str, torch.Tensor]:
+    """Per-axis mean, median, min and max of the (B, 64, 2) projection
+    cloud, averaged over the batch.  The median averages the two middle
+    values, as jnp.median does (torch.median would take the lower one)."""
+    pts = proj.reshape(proj.shape[0], -1, 2)
+    reductions = (
+        ("mean", lambda p: p.mean(dim=1)),
+        ("median", lambda p: torch.quantile(p, 0.5, dim=1)),
+        ("min", lambda p: p.amin(dim=1)),
+        ("max", lambda p: p.amax(dim=1)),
+    )
+    out = {}
+    for rname, red in reductions:
+        val = red(pts).mean(dim=0)
+        out[f"{name}x_{rname}"] = val[0]
+        out[f"{name}y_{rname}"] = val[1]
+    return out
+
+
+def make_peclr_train_step(
+    model: nn.Module,
+    optimizer: PretrainOptimizer,
+    flags: AugmentationFlags,
+    aug_params: AugmentationParams,
+    accum: int = 1,
+    temperature: float = 0.5,
+    warp_route: str = "grouped",
+    precision: str = "bf16",
+    augmentations: Optional[Sequence[str]] = None,
+):
+    """Returns step(state, batch, generator, draws=None) -> (state, metrics).
+
+    batch holds 'image' (accum*B, H, W, 3) uint8 and 'joints25d' (accum*B,
+    21, 3) on the model's device.  `generator` (a torch.Generator on that
+    device) makes each microbatch's augmentation draws, unless `draws` gives
+    them: a list of accum dicts of 2B parameters each (ops/augment.py:draw),
+    e.g. those the reference drew.  The step updates state.model and
+    state.optimizer in place and advances state.step.  `warp_route` picks
+    the warp's kernels (ops/warp_mxu.py:ROUTES).  metrics: the mean loss and
+    the last microbatch's projection_stats, as the reference reports."""
+    if augmentations is None:
+        augmentations = flags.active()
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision={precision!r}, want one of {PRECISIONS}")
+    image_size = tuple(aug_params.resize_shape)
+
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
+                   generator: Optional[torch.Generator],
+                   draws: Optional[List[Dict[str, torch.Tensor]]] = None):
+        if state.model is not model or state.optimizer is not optimizer:
+            raise ValueError("the state holds another model or optimizer "
+                             "than the step was made with")
+        images, joints = batch["image"], batch["joints25d"]
+        n = images.shape[0]
+        if n % accum:
+            raise ValueError(f"batch of {n} does not split into {accum} "
+                             "microbatches")
+        if draws is not None and len(draws) != accum:
+            raise ValueError(f"{len(draws)} draws for {accum} microbatches")
+        mb = n // accum
+        device = images.device
+        bf16 = device.type == "cuda" and precision == "bf16"
+        compute_dtype = torch.bfloat16 if bf16 else torch.float32
+
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        loss_sum = torch.zeros((), device=device)
+        for i in range(accum):
+            sl = slice(i * mb, (i + 1) * mb)
+            v1, v2 = augment_pair(
+                generator, images[sl], joints[sl], flags, aug_params,
+                draws=None if draws is None else draws[i], route=warp_route,
+                compute_dtype=compute_dtype)
+            with torch.autocast(device.type, dtype=torch.bfloat16,
+                                enabled=bf16):
+                out = model(torch.cat([v1.images, v2.images]))
+            proj = out["projection"]
+            z1, z2 = peclr_projections(proj[:mb], proj[mb:], v1.params,
+                                       v2.params, image_size=image_size,
+                                       augmentations=augmentations)
+            loss = ntxent_loss(z1, z2, temperature)
+            (loss / accum).backward()
+            loss_sum += loss.detach()
+        proj = proj.detach()
+        stats = {**projection_stats(proj[:mb], "proj1"),
+                 **projection_stats(proj[mb:], "proj2")}
+        optimizer.step()
+        state.step += 1
+        return state, {"loss": loss_sum / accum, **stats}
+
+    return train_step

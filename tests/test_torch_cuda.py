@@ -12,8 +12,14 @@ import pytest
 import torch
 
 from peclr_tpu_torch.ops.shift_lerp import (
+    fused_shift_lerp,
     fused_shift_lerp_grouped,
+    shift_lerp_flat_plain,
     shift_lerp_grouped_plain,
+)
+from peclr_tpu_torch.ops.shift_lerp_matmul import (
+    fused_shift_lerp_matmul,
+    shift_lerp_matmul_plain,
 )
 
 pytestmark = pytest.mark.cuda
@@ -86,3 +92,83 @@ def test_two_pass_predictor_runs_through_the_kernel(card, monkeypatch):
                         shift_lerp_grouped_plain)
     ref = run_two_pass(model, images.to(card), K.to(card))
     assert (got["kp25d_1"] - ref["kp25d_1"]).abs().max().item() <= 1e-3
+
+
+def test_flat_shift_kernel_matches_plain(card):
+    """Kernel 3 (NHWC rows, C = 3) against its plain version on the card, at
+    an odd N with rows clamped at both ends: 1e-3 in f32, 1.0 in bf16."""
+    rng = np.random.default_rng(6)
+    n, w_px, c, out_w = 1001, 224, 3, 384
+    k = torch.from_numpy(
+        rng.integers(-(out_w + 12), w_px + 12, (n,)).astype(np.int32)).to(card)
+    f = torch.from_numpy(rng.uniform(0, 1, (n,)).astype(np.float32)).to(card)
+    x = torch.from_numpy(
+        rng.integers(0, 256, (n, w_px * c)).astype(np.uint8)).to(card)
+    launches = fused_shift_lerp.launches
+    for src in (x, x.to(torch.bfloat16), x.float()):
+        for out_dtype, tol in ((torch.float32, 1e-3), (torch.bfloat16, 1.0)):
+            got = fused_shift_lerp(src, k, f, out_w * c, c, out_dtype)
+            ref = shift_lerp_flat_plain(src, k, f, out_w * c, c, out_dtype)
+            torch.cuda.synchronize()
+            assert (got.float() - ref.float()).abs().max().item() <= tol
+    assert fused_shift_lerp.launches == launches + 6
+
+
+def test_shift_matmul_kernel_matches_plain(card):
+    """Kernel 4 against its plain version on the card, bf16 taps on the
+    tensor cores and f32 taps on the CUDA cores, ragged tiles: f32 out
+    within 1e-2 (sum order), bf16 out within one bf16 step of 255."""
+    rng = np.random.default_rng(7)
+    g, b, r, w, u, m = 3, 5, 70, 224, 384, 130
+    x = torch.from_numpy(
+        rng.integers(0, 256, (g, b, r, w)).astype(np.uint8)).to(card)
+    k = torch.from_numpy(
+        rng.integers(-(u + 5), w + 5, (b * r,)).astype(np.int32)).to(card)
+    f = torch.from_numpy(rng.uniform(0, 1, (b * r,)).astype(np.float32)).to(card)
+    # taps of a resample: non-negative, each output's taps summing to 1
+    taps = rng.uniform(0, 1, (b, m, u)).astype(np.float32)
+    taps /= taps.sum(axis=2, keepdims=True)
+    launches = fused_shift_lerp_matmul.launches
+    for src in (x, x.to(torch.bfloat16)):
+        for w_dtype in (torch.bfloat16, torch.float32):
+            w_t = torch.from_numpy(taps).to(card, w_dtype)
+            for out_dtype, tol in ((torch.float32, 1e-2),
+                                   (torch.bfloat16, 1.0)):
+                got = fused_shift_lerp_matmul(src, k, f, w_t, out_dtype)
+                ref = shift_lerp_matmul_plain(src, k, f, w_t, out_dtype)
+                torch.cuda.synchronize()
+                assert got.shape == (g, b, m, r)
+                assert (got.float() - ref.float()).abs().max().item() <= tol
+    assert fused_shift_lerp_matmul.launches == launches + 8
+
+
+@pytest.mark.parametrize("route", ["grouped", "matmul"])
+def test_pretrain_step_runs_on_the_card(card, route):
+    """One RN18 pretrain step (64 -> 32 canvases, accum 2) on the card, in
+    bf16: a finite loss, the route's kernel launched twice per microbatch,
+    and the parameters on the card."""
+    from peclr_tpu_torch.config.defaults import (
+        AugmentationParams,
+        peclr_pretrain_flags,
+    )
+    from peclr_tpu_torch.train.recipe import (
+        build_pretrain_state,
+        synthetic_pretrain_batch,
+    )
+    from peclr_tpu_torch.train.step import make_peclr_train_step
+
+    model, state, opt = build_pretrain_state("18", batch=4, accum=2,
+                                             device=card)
+    step = make_peclr_train_step(model, opt, peclr_pretrain_flags(),
+                                 AugmentationParams(resize_shape=(32, 32)),
+                                 accum=2, warp_route=route)
+    batch = synthetic_pretrain_batch(8, canvas=64, seed=0, device=card)
+    kernel = (fused_shift_lerp_grouped if route == "grouped"
+              else fused_shift_lerp_matmul)
+    before = kernel.launches
+    state, metrics = step(state, batch, torch.Generator(card).manual_seed(0))
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 4
+    assert torch.isfinite(metrics["loss"]).item()
+    assert state.step == 1
+    assert all(p.device.type == "cuda" for p in model.parameters())

@@ -1,0 +1,252 @@
+"""The port's PeCLR pretrain step (peclr_tpu_torch/train/step.py) against
+the reference's make_peclr_train_step, two steps at the dry-run shape of
+__graft_entry__ (RN18, 64 -> 32 canvases, accum 2, the LARS schedule of
+steps_per_epoch 4, epochs 2, warmup 1), in f32 on the CPU.
+
+Both start from the same seeded weights.  The port is handed the
+augmentation parameters the reference drew (its step splits the key into
+one per microbatch and calls augment_pair with each).  The reference's
+gradients come out of its own step: a transform at the head of its optax
+chain records them in the optimizer state.
+
+The views: inside the reference's jitted step XLA fuses the colour jitter
+with its neighbours, and a few of its floors (the uint8 round trip) land a
+whole step away from the same function run op by op; the gradients of this
+tiny RN18 move by 10% with them (0.3% without the colour jitter).  The port
+reproduces the op-by-op views exactly (tests/test_torch_augment.py), so the
+reference's step here computes its views op by op, through a
+jax.pure_callback around its own augment_pair; nothing else of its step
+changes.  Tolerances, and why:
+  * loss 1e-4 relative, gradients 1e-3 relative norm per parameter: f32
+    convolutions, BatchNorm and NT-Xent summed in another order;
+  * BatchNorm running statistics 1e-4 of each tensor's scale: two
+    sequential momentum-0.1 updates per step against the reference's
+    closed form, over activations that carry the differences above;
+  * parameters: step 1 runs at lr 0 and moves nothing, in either.  Step 2
+    moves each element by about lr (Adam's normalised update), so the
+    update of each parameter agrees to 1e-2 of its norm, and each element
+    to one lr: where a gradient is near 0, its normalised update is not
+    determined by the gradient's digits.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from peclr_tpu.config.defaults import AugmentationParams as JaxParams
+from peclr_tpu.config.defaults import peclr_pretrain_flags as jax_flags
+from peclr_tpu.models import PeCLRModel as JaxPeCLR
+from peclr_tpu.ops.augment import AugmentOutput
+from peclr_tpu.ops.augment import augment_pair as jax_augment_pair
+from peclr_tpu.train import step as jax_step_module
+from peclr_tpu.train.optimizer import build_optimizer as jax_build_optimizer
+from peclr_tpu.train.state import TrainState as JaxState
+from peclr_tpu.train.step import make_peclr_train_step as jax_make_step
+from peclr_tpu_torch.config.defaults import (
+    AugmentationParams,
+    peclr_pretrain_flags,
+)
+from peclr_tpu_torch.data.synthetic import seeded_peclr_variables
+from peclr_tpu_torch.models import PeCLRModel
+from peclr_tpu_torch.models.port import (
+    flatten,
+    peclr_mapping,
+    peclr_variables_to_state_dict,
+)
+from peclr_tpu_torch.train.optimizer import build_optimizer
+from peclr_tpu_torch.train.recipe import synthetic_pretrain_batch
+from peclr_tpu_torch.train.state import TrainState
+from peclr_tpu_torch.train.step import make_peclr_train_step
+
+MB, ACCUM, CANVAS, VIEW = 4, 2, 64, 32
+OPT = dict(base_lr=1e-4, batch_size=MB, accum=ACCUM, steps_per_epoch=4,
+           epochs=2, warmup_epochs=1)
+
+
+def _record_grads():
+    """An optax transform that passes the updates on and keeps them in its
+    state: the gradients the reference's step hands its optimizer."""
+    return optax.GradientTransformation(
+        lambda params: jax.tree_util.tree_map(jnp.zeros_like, params),
+        lambda updates, state, params=None: (updates, updates))
+
+
+def _op_by_op_augment_pair(key, images, joints, flags, params,
+                           normalize=True):
+    """The reference's augment_pair, run op by op from inside its jitted
+    step (module docstring)."""
+    def host(k, im, jt):
+        v1, v2 = jax_augment_pair(jnp.asarray(k), jnp.asarray(im),
+                                  jnp.asarray(jt), flags, params, normalize)
+        return tuple((np.asarray(v.images), np.asarray(v.joints),
+                      np.asarray(v.matrix),
+                      {n: np.asarray(p) for n, p in v.params.items()})
+                     for v in (v1, v2))
+
+    shapes = jax.eval_shape(lambda k, im, jt: tuple(
+        (v.images, v.joints, v.matrix, v.params)
+        for v in jax_augment_pair(k, im, jt, flags, params, normalize)),
+        key, images, joints)
+    views = jax.pure_callback(host, shapes, key, images, joints)
+    return tuple(AugmentOutput(*view) for view in views)
+
+
+def _reference_draws(key, batch):
+    """The parameters the reference's step draws: split(key, accum), then
+    augment_pair on each microbatch; as 2B-sample draws for the port."""
+    keys = jax.random.split(key, ACCUM)
+    draws = []
+    for i in range(ACCUM):
+        sl = slice(i * MB, (i + 1) * MB)
+        v1, v2 = jax_augment_pair(keys[i], jnp.asarray(batch["image"][sl]),
+                                  jnp.asarray(batch["joints25d"][sl]),
+                                  jax_flags(), JaxParams(resize_shape=(VIEW,
+                                                                       VIEW)))
+        draws.append({k: torch.from_numpy(np.concatenate(
+            [np.asarray(v1.params[k]), np.asarray(v2.params[k])]))
+            for k in v1.params})
+    return draws
+
+
+def _by_torch_name(tree, coll):
+    flat = {"/".join(k): np.asarray(v) for k, v in flatten(tree).items()}
+    return {t: flat["/".join(p)] for t, c, p, _ in peclr_mapping("18")
+            if c == coll}
+
+
+_KINDS = {t: kind for t, _, _, kind in peclr_mapping("18")}
+
+
+def _as_torch_layout(name, value):
+    if _KINDS[name] == "conv":  # HWIO -> OIHW
+        return np.transpose(value, (3, 2, 0, 1))
+    if _KINDS[name] == "dense_w":  # (in, out) -> (out, in)
+        return value.T
+    return value
+
+
+@pytest.fixture(scope="module")
+def runs():
+    patch = pytest.MonkeyPatch()
+    patch.setattr(jax_step_module, "augment_pair", _op_by_op_augment_pair)
+    try:
+        yield _run_both()
+    finally:
+        patch.undo()
+
+
+def _run_both():
+    variables = seeded_peclr_variables("18", seed=0)
+    batch = {k: v.numpy() for k, v in synthetic_pretrain_batch(
+        MB * ACCUM, canvas=CANVAS, seed=0, device="cpu").items()}
+
+    model = JaxPeCLR(resnet_size="18", dtype=jnp.float32)
+    tx, _ = jax_build_optimizer(variables["params"], optimizer="LARS", **OPT)
+    tx = optax.chain(_record_grads(), tx)
+    jax_state = JaxState.create(jax.tree_util.tree_map(jnp.asarray, variables),
+                                tx)
+    jax_step = jax_make_step(model, tx, jax_flags(),
+                             JaxParams(resize_shape=(VIEW, VIEW)),
+                             accum=ACCUM, donate=False)
+
+    port = PeCLRModel("18")
+    port.load_state_dict(peclr_variables_to_state_dict(variables, "18"),
+                         strict=True)
+    opt, _ = build_optimizer(port, **OPT)
+    state = TrainState(port, opt)
+    step = make_peclr_train_step(port, opt, peclr_pretrain_flags(),
+                                 AugmentationParams(resize_shape=(VIEW, VIEW)),
+                                 accum=ACCUM)
+    torch_batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+
+    out = []
+    for s in range(2):
+        key = jax.random.PRNGKey(10 + s)
+        jax_state, jax_metrics = jax_step(jax_state, batch, key)
+        state, metrics = step(state, torch_batch, None,
+                              draws=_reference_draws(key, batch))
+        grads = {n: p.grad.numpy().copy() for n, p in port.named_parameters()}
+        out.append(dict(
+            loss=(metrics["loss"].item(), float(jax_metrics["loss"])),
+            grads=(grads, _by_torch_name(jax_state.opt_state[0], "params")),
+            params=({k: v.detach().numpy().copy()
+                     for k, v in port.state_dict().items()},
+                    _by_torch_name(jax_state.params, "params")),
+            stats=(None, _by_torch_name(jax_state.batch_stats, "batch_stats")),
+            metrics=(metrics, jax_metrics),
+        ))
+    return variables, out, state
+
+
+@pytest.mark.parametrize("s", [0, 1])
+def test_loss_matches(runs, s):
+    got, ref = runs[1][s]["loss"]
+    assert np.isfinite(got)
+    np.testing.assert_allclose(got, ref, rtol=1e-4)
+
+
+@pytest.mark.parametrize("s", [0, 1])
+def test_grads_match(runs, s):
+    """Per parameter, 1e-3 of its gradient's norm; the bias of the head's
+    first Linear feeds a BatchNorm, so its gradient is 0 up to rounding
+    (1e-8) and is held to 1e-6 of the gradients' largest norm instead."""
+    grads, ref = runs[1][s]["grads"]
+    assert set(grads) == set(ref)
+    largest = max(np.linalg.norm(r) for r in ref.values())
+    for name, g in grads.items():
+        r = _as_torch_layout(name, ref[name])
+        err = np.linalg.norm(g - r)
+        assert err <= 1e-3 * np.linalg.norm(r) + 1e-6 * largest, (
+            name, err, np.linalg.norm(r))
+
+
+@pytest.mark.parametrize("s", [0, 1])
+def test_batch_stats_match(runs, s):
+    params, _ = runs[1][s]["params"]
+    _, ref = runs[1][s]["stats"]
+    for name, r in ref.items():
+        np.testing.assert_allclose(params[name], r, rtol=0,
+                                   atol=1e-4 * np.abs(r).max() + 1e-7,
+                                   err_msg=name)
+
+
+def test_params_after_each_update(runs):
+    variables, out, state = runs
+    initial = peclr_variables_to_state_dict(variables, "18")
+    lr_step2 = 1e-4 * np.sqrt(MB * ACCUM) * 0.5  # warmup: half the peak
+    for s in range(2):
+        params, ref = out[s]["params"]
+        for name, r in ref.items():
+            got = params[name]
+            r = _as_torch_layout(name, r)
+            if s == 0:  # lr 0: nothing moves
+                np.testing.assert_array_equal(got, initial[name].numpy(),
+                                              err_msg=name)
+            np.testing.assert_allclose(got, r, rtol=0, atol=lr_step2,
+                                       err_msg=f"{name} step {s + 1}")
+            # the head's first bias has a gradient of rounding noise only
+            # (test_grads_match): its update has no digits to compare
+            if s == 1 and name != "projection_head.0.bias":
+                start = initial[name].numpy()
+                want = r - start
+                assert (np.linalg.norm((got - start) - want)
+                        <= 1e-2 * np.linalg.norm(want)), name
+        moved = [name for name in ref
+                 if not np.array_equal(params[name], initial[name].numpy())]
+        assert bool(moved) == (s == 1)
+    assert state.step == 2 and state.optimizer.count == 2
+
+
+def test_projection_stats_match(runs):
+    """The last microbatch's stats, as the reference reports them; the
+    median averages the two middle values, as jnp.median does.  1e-4 of
+    the projections' scale (the forward's f32 summation order)."""
+    metrics, ref = runs[1][1]["metrics"]
+    assert set(metrics) == set(ref)
+    scale = max(abs(float(v)) for v in ref.values())
+    for key, value in ref.items():
+        np.testing.assert_allclose(metrics[key].item(), float(value),
+                                   rtol=0, atol=1e-4 * scale, err_msg=key)
