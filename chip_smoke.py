@@ -12,11 +12,14 @@ one JSON line that carries the card's name and power limit:
               started together)
   3. kernel   each kernel against its plain PyTorch version: the grouped
               shift at the leaderboard shapes (B = 120; raw mode bit-exact,
-              lerp within 1e-3 f32 / 1.0 bf16 on the 0-255 scale), the flat
-              (NHWC) shift (same bounds) and the fused shift+matmul (f32 out
-              within 1e-2, bf16 out within 1.0) at the pretrain recipe's
-              shapes, an odd row count and rows clamped at both ends; kernel,
-              plain, bound and library (or grouped-route) times
+              lerp within 1e-3 f32 / 1.0 bf16 on the 0-255 scale) and at the
+              pretrain recipe's, the flat (NHWC) shift (same bounds) and the
+              fused shift+matmul (f32 out within 1e-2, bf16 out within 1.0;
+              zero taps exactly 0) at the pretrain recipe's shapes, an odd
+              row count, rows clamped at both ends, dense, tent, zero and
+              ragged taps, with the mean band width the kernel walks
+              (band_taps_mean), and its band pass bit-exact; kernel, plain,
+              bound and library (or grouped-route) times
   4. warp     affine_warp_mxu at the pred_fh geometry, kernel against plain,
               both in bf16 on the card: max abs <= 2.5 (the TPU's bound for
               the same comparison); then the pretrain geometry (256 seeded
@@ -48,6 +51,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import itertools
 import json
 import math
 import subprocess
@@ -92,6 +96,26 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int):
+    """Device time of fn() in ms: the card's kernel intervals in a
+    torch.profiler trace of `reps` calls, summed, over reps.  Unlike
+    cuda_ms it leaves out the host's time between launches, which sets the
+    pace of a call shorter than its wrapper."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(spans) / reps / 1e3 if spans else None
 
 
 @contextlib.contextmanager
@@ -200,18 +224,29 @@ def phase_kernel(torch, dev):
     wide = offsets(n_main, -(out + 40.0), 224 + 40.0)
     clamped = torch.cat([offsets(n_main // 2, -5000.0, -(out + 3.0)),
                          offsets(n_main - n_main // 2, 225.0, 5000.0)])
+    # the grouped route's shapes in the pretrain recipe (2B = 256 canvases)
+    n1, n2 = 2 * MICROBATCH * 224, 2 * MICROBATCH * 128
+    pre_u8 = torch.randint(0, 256, (3, n1, 224), generator=gen, device=dev,
+                           dtype=torch.uint8)
+    pre_bf = (torch.rand((3, n2, 224), generator=gen, device=dev) * 255).to(
+        torch.bfloat16)
     cases = [
-        ("pass1_u8_to_bf16", True, u8, wide, torch.bfloat16, 1.0),
-        ("pass1_u8_to_f32", True, u8, wide, torch.float32, 1e-3),
-        ("pass2_bf16_to_bf16", True, bf, wide, torch.bfloat16, 1.0),
+        ("pass1_u8_to_bf16", True, u8, wide, torch.bfloat16, 1.0, out),
+        ("pass1_u8_to_f32", True, u8, wide, torch.float32, 1e-3, out),
+        ("pass2_bf16_to_bf16", True, bf, wide, torch.bfloat16, 1.0, out),
         ("odd_n_1001_u8_to_bf16", True, odd, offsets(1001, -800.0, 260.0),
-         torch.bfloat16, 1.0),
-        ("clamped_rows_u8_to_f32", True, u8, clamped, torch.float32, 1e-3),
-        ("raw_pass1_u8", False, u8, wide, None, 0.0),
-        ("raw_pass2_bf16", False, bf, wide, None, 0.0),
-        ("raw_clamped_u8", False, u8, clamped, None, 0.0),
+         torch.bfloat16, 1.0, out),
+        ("clamped_rows_u8_to_f32", True, u8, clamped, torch.float32, 1e-3,
+         out),
+        ("pretrain_pass1_u8_to_bf16", True, pre_u8,
+         offsets(n1, -424.0, 264.0), torch.bfloat16, 1.0, 384),
+        ("pretrain_pass2_bf16_to_bf16", True, pre_bf,
+         offsets(n2, -296.0, 264.0), torch.bfloat16, 1.0, 256),
+        ("raw_pass1_u8", False, u8, wide, None, 0.0, out),
+        ("raw_pass2_bf16", False, bf, wide, None, 0.0, out),
+        ("raw_clamped_u8", False, u8, clamped, None, 0.0, out),
     ]
-    for name, lerp, rows3, off, out_dtype, tol in cases:
+    for name, lerp, rows3, off, out_dtype, tol, out in cases:
         k_true = torch.floor(off)
         k = k_true.clamp(-(out + 2), rows3.shape[2]).to(torch.int32)
         f = (off - k_true).to(torch.float32)
@@ -342,27 +377,46 @@ def phase_flat_kernel(torch, dev):
 
 
 def matmul_bound(rows4, k, w_t, out):
-    """Least time (ms) of the fused shift+matmul on these inputs: each
-    source element that some tap reaches, the taps, k and f read once, each
-    output written once; the multiply-adds of the taps that are not zero
-    (the band), on the tensor cores for bf16 taps, plus 3 f32 operations
-    per lerped window element."""
+    """Least time (ms) of the fused shift+matmul on these inputs: the taps,
+    k and f read once, each output written once, and of the source only the
+    elements that the taps of this run's data need: for image b with
+    nonzero taps in [lo_b, hi_b) (over all of M), window taps u in that
+    range, which read source k + u and k + u + 1 (none where every tap is
+    zero); the multiply-adds of the taps that are not zero, on the tensor
+    cores for bf16 taps, plus 3 f32 operations per needed window element."""
+    import torch
+
+    from peclr_tpu_torch.ops.shift_lerp_matmul import tap_band_plain
+
     g, b, r, w = rows4.shape
     _, m, u = w_t.shape
-    kk = k.long().clamp(-(u + 2), w)
-    reached = (kk + u + 1).clamp(0, w) - kk.clamp(0, w)
+    band = tap_band_plain(w_t, max(m, 1))[:, 0].long()  # (B, 2) over all M
+    lo, hi = band[:, :1], band[:, 1:]
+    kk = k.long().clamp(-(u + 2), w).view(b, r)
+    reached = (kk + hi + 1).clamp(0, w) - (kk + lo).clamp(0, w)
+    reached = torch.where(hi > lo, reached, 0)
     moved = (g * int(reached.sum().item()) * rows4.element_size()
              + w_t.numel() * w_t.element_size()
              + out.numel() * out.element_size() + b * r * 8)
-    import torch
-
     nonzero = int((w_t != 0).sum().item())
+    lerped = g * r * int((hi - lo).sum().item())
     mac_rate = BF16_TC_FLOPS if w_t.dtype == torch.bfloat16 else F32_FLOPS
-    ops_ms = (2 * g * r * nonzero / mac_rate + 3 * g * b * r * u / F32_FLOPS) * 1e3
+    ops_ms = (2 * g * r * nonzero / mac_rate + 3 * lerped / F32_FLOPS) * 1e3
     dense_ms = 2 * g * b * r * m * u / mac_rate * 1e3
     bytes_ms = moved / HBM_BYTES_PER_S * 1e3
     bound = (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
     return bound + (dense_ms, moved)
+
+
+def rounded_band_mean(band, u: int) -> float:
+    """Mean width of the bands the kernel walks, from tap_band's output: lo
+    rounded down and hi up to the MMA depth (kDepth = 16 of
+    csrc/shift_lerp_matmul.cu), hi at most U rounded up, an empty band
+    empty."""
+    lo, hi = band[..., 0].long(), band[..., 1].long()
+    lo_r = lo // 16 * 16
+    hi_r = (-(-hi // 16) * 16).clamp(max=-(-u // 16) * 16)
+    return (hi_r - lo_r).where(hi > lo, 0).double().mean().item()
 
 
 def phase_matmul_kernel(torch, dev):
@@ -370,15 +424,21 @@ def phase_matmul_kernel(torch, dev):
     area tap matrices of the recipe's slopes: pass 1 (3, 256, 224, 224)
     uint8, taps (256, 128, 384) bf16 -> (3, 256, 128, 224) bf16; pass 2
     (3, 256, 128, 224) bf16, taps (256, 128, 256) bf16 -> (3, 256, 128, 128)
-    f32; the f32 taps of precision="f32"; an odd row count; clamped rows.
-    Beside each: the grouped route for the same pass (kernel 1 then
-    torch.matmul), the yardstick of whether fusing pays on this card."""
+    f32; the f32 taps of precision="f32"; an odd row count; clamped rows;
+    dense taps (the band is all of U: the worst case); tent taps of an
+    upscale; all-zero taps; U = 100 and M = 72 (scalar tap staging, ragged
+    tiles).  Beside each: the grouped route for the same pass (kernel 1 then
+    torch.matmul), the yardstick of whether fusing pays on this card, and
+    the mean width of the bands the kernel walks.  Then the band pass alone
+    against its plain version, bit-exact, at the pass-1 and pass-2 taps."""
     from peclr_tpu_torch.ops.shift_lerp import fused_shift_lerp_grouped
     from peclr_tpu_torch.ops.shift_lerp_matmul import (
         fused_shift_lerp_matmul,
         shift_lerp_matmul_plain,
+        tap_band,
+        tap_band_plain,
     )
-    from peclr_tpu_torch.ops.warp_mxu import _area_matrix
+    from peclr_tpu_torch.ops.warp_mxu import _area_matrix, _tent_matrix
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 11)
     b = 2 * MICROBATCH
@@ -386,8 +446,8 @@ def phase_matmul_kernel(torch, dev):
     def uniform(shape, lo, hi):
         return torch.rand(shape, generator=gen, device=dev) * (hi - lo) + lo
 
-    def taps(nb, u, m, lo, hi, dtype):
-        return _area_matrix(uniform(nb, lo, hi), u, m, transposed=True).to(dtype)
+    def taps(nb, u, m, lo, hi, dtype, matrix=_area_matrix):
+        return matrix(uniform(nb, lo, hi), u, m, transposed=True).to(dtype)
 
     def rows_of(shape, dtype):
         x = uniform(shape, 0, 255)
@@ -396,14 +456,19 @@ def phase_matmul_kernel(torch, dev):
     p1 = rows_of((3, b, 224, 224), torch.uint8)
     p2 = rows_of((3, b, 128, 224), torch.bfloat16)
     odd = rows_of((3, 4, 1001, 224), torch.uint8)
+    ragged = rows_of((3, 64, 130, 224), torch.uint8)
     n1 = b * 224
     clamped = torch.cat([uniform(n1 // 2, -5000.0, -(384 + 3.0)),
                          uniform(n1 - n1 // 2, 225.0, 5000.0)])
+    dense = uniform((b, 128, 384), 0.0, 1.0)  # nonzero everywhere, rows sum to 1
+    dense = (dense / dense.sum(dim=2, keepdim=True)).to(torch.bfloat16)
+    pass1_taps = taps(b, 384, 128, 1.0, 2.5, torch.bfloat16)
+    pass2_taps = taps(b, 256, 128, 1.0, 1.75, torch.bfloat16)
     cases = [
         ("matmul_pass1_u8_to_bf16", p1, uniform(n1, -424.0, 264.0),
-         taps(b, 384, 128, 1.0, 2.5, torch.bfloat16), torch.bfloat16, 1.0),
+         pass1_taps, torch.bfloat16, 1.0),
         ("matmul_pass2_bf16_to_f32", p2, uniform(b * 128, -296.0, 264.0),
-         taps(b, 256, 128, 1.0, 1.75, torch.bfloat16), torch.float32, 1e-2),
+         pass2_taps, torch.float32, 1e-2),
         ("matmul_pass2_f32_taps_to_f32", p2.float(),
          uniform(b * 128, -296.0, 264.0),
          taps(b, 256, 128, 1.0, 1.75, torch.float32), torch.float32, 1e-2),
@@ -411,6 +476,16 @@ def phase_matmul_kernel(torch, dev):
          taps(4, 384, 128, 1.0, 2.5, torch.bfloat16), torch.float32, 1e-2),
         ("matmul_clamped_rows_u8_to_f32", p1, clamped,
          taps(b, 384, 128, 1.0, 2.5, torch.bfloat16), torch.float32, 1e-2),
+        ("matmul_pass1_dense_taps_u8_to_bf16", p1, uniform(n1, -424.0, 264.0),
+         dense, torch.bfloat16, 1.0),
+        ("matmul_pass1_tent_taps_u8_to_bf16", p1, uniform(n1, -424.0, 264.0),
+         taps(b, 384, 128, 0.5, 1.0, torch.bfloat16, _tent_matrix),
+         torch.bfloat16, 1.0),
+        ("matmul_zero_taps_u8_to_f32", p1, uniform(n1, -424.0, 264.0),
+         torch.zeros((b, 128, 384), device=dev, dtype=torch.bfloat16),
+         torch.float32, 1e-2),
+        ("matmul_ragged_u100_m72", ragged, uniform(64 * 130, -140.0, 264.0),
+         taps(64, 100, 72, 1.0, 1.35, torch.bfloat16), torch.float32, 1e-2),
     ]
     results = []
     for name, rows4, off, w_t, out_dtype, tol in cases:
@@ -439,19 +514,53 @@ def phase_matmul_kernel(torch, dev):
         max_abs = (got.float() - ref.float()).abs().max().item()
         check(max_abs <= tol, f"{name}: max_abs {max_abs} > {tol}")
         check(bool(torch.isfinite(got).all()), f"{name}: not finite")
-        if name.startswith("matmul_clamped"):
-            check(got.abs().max().item() == 0, f"{name}: clamped rows not zero")
+        if name.startswith(("matmul_clamped", "matmul_zero")):
+            check(got.abs().max().item() == 0, f"{name}: output not zero")
+        band_taps_mean = None  # the f32-taps path walks all of U
+        if w_t.dtype == torch.bfloat16:
+            band_taps_mean = rounded_band_mean(tap_band_plain(w_t), u)
         (bound, bound_by, dense_ms, moved) = matmul_bound(rows4, k, w_t, got)
         row = {
             "case": name, "shape_in": list(rows4.shape),
             "taps": list(w_t.shape), "in_dtype": str(rows4.dtype),
             "taps_dtype": str(w_t.dtype), "out_dtype": str(got.dtype),
             "max_abs": max_abs, "tolerance": tol,
-            "ms": cuda_ms(kern, 10), "plain_ms": cuda_ms(plain, 3),
+            "ms": cuda_ms(kern, 10), "device_ms": device_ms(kern, 10),
+            "plain_ms": cuda_ms(plain, 3),
             "bound_ms": bound, "bound_by": bound_by, "bytes_moved": moved,
             "dense_taps_ops_ms": dense_ms,
             "library_ms": None,  # no one PyTorch call shifts, lerps and multiplies
             "grouped_route_ms": cuda_ms(grouped_route, 10),
+            "band_taps_mean": band_taps_mean,
+        }
+        results.append(row)
+        emit("kernel", **row)
+
+    # the band pass alone: bit-exact; bound by reading the taps once.  It is
+    # timed in turns over copies of the taps that together outgrow the
+    # card's 50 MB L2, so that each call reads its taps from HBM.
+    for name, w_t in (("tap_band_pass1", pass1_taps),
+                      ("tap_band_pass2", pass2_taps)):
+        got, ref = tap_band(w_t), tap_band_plain(w_t)
+        torch.cuda.synchronize()
+        check(torch.equal(got, ref), f"{name}: band not bit-exact")
+        moved = w_t.numel() * w_t.element_size() + got.numel() * 4
+        nbytes = w_t.numel() * w_t.element_size()
+        copies = [w_t.clone() for _ in range(-(-150_000_000 // nbytes))]
+        turn = itertools.cycle(copies)
+
+        def band_in_turns():
+            return tap_band(next(turn))
+
+        row = {
+            "case": name, "taps": list(w_t.shape), "taps_dtype": str(w_t.dtype),
+            "max_abs": (got - ref).abs().max().item(), "tolerance": 0,
+            "taps_copies": len(copies),
+            "ms": cuda_ms(band_in_turns, 20),
+            "device_ms": device_ms(band_in_turns, 20),
+            "plain_ms": cuda_ms(lambda: tap_band_plain(w_t), 5),
+            "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": None,
         }
         results.append(row)
         emit("kernel", **row)
@@ -978,13 +1087,16 @@ def main() -> int:
         }
 
     shift_src = "peclr_tpu_torch/csrc/shift_lerp.cu"
+    matmul_of = {r["case"]: r for r in matmul_rows}
     kernels = [
         summary("shift_lerp_grouped", shift_src,
                 "peclr_tpu/ops/pallas/barrel_shift.py:100",
                 runs["lerp_in_kernel"][0]["launches"],
                 [r for r in kernel_rows if r["lerp"]], "pass2_bf16_to_bf16",
                 launches_per_pretrain_step=pretrain_runs["grouped"][0][
-                    "launches"]["shift_lerp_grouped"]),
+                    "launches"]["shift_lerp_grouped"],
+                pretrain_ms={r["case"]: r["ms"] for r in kernel_rows
+                             if r["case"].startswith("pretrain_")}),
         summary("shift_raw_grouped", shift_src,
                 "peclr_tpu/ops/pallas/barrel_shift.py:118",
                 runs["raw_kernel"][0]["raw_launches"],
@@ -998,10 +1110,13 @@ def main() -> int:
                 "peclr_tpu/ops/pallas/barrel_shift.py:392",
                 pretrain_runs["matmul"][0]["launches"]["shift_lerp_matmul"],
                 matmul_rows, "matmul_pass1_u8_to_bf16",
-                grouped_route_ms=next(
-                    r for r in matmul_rows
-                    if r["case"] == "matmul_pass1_u8_to_bf16")[
-                        "grouped_route_ms"]),
+                grouped_route_ms=matmul_of["matmul_pass1_u8_to_bf16"][
+                    "grouped_route_ms"],
+                band_taps_mean=matmul_of["matmul_pass1_u8_to_bf16"][
+                    "band_taps_mean"],
+                device_ms=matmul_of["matmul_pass1_u8_to_bf16"]["device_ms"],
+                pass2_ms=matmul_of["matmul_pass2_bf16_to_f32"]["ms"],
+                band_pass_device_ms=matmul_of["tap_band_pass1"]["device_ms"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     emit("done", seconds=time.perf_counter() - t_start)

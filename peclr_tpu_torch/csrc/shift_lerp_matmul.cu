@@ -1,10 +1,11 @@
 // Fused per-row shift + fractional lerp + per-image NT tap matmul: one pass
-// of the two-pass affine warp in one launch.
+// of the two-pass affine warp.
 //
 // Replaces the Pallas TPU kernel `_matmul_kernel` of
-// peclr_tpu/ops/pallas/barrel_shift.py, reached through
-// fused_shift_lerp_matmul.  For G planes of B images of R rows of W source
-// elements, a window of U taps per row and M outputs per image:
+// peclr_tpu/ops/pallas/barrel_shift.py (body :392-406, pallas_call :470),
+// reached through fused_shift_lerp_matmul.  For G planes of B images of R
+// rows of W source elements, a window of U taps per row and M outputs per
+// image:
 //
 //   win[g,b,r,u] = cast_Wt( x[g,b,r,u+k] * (1 - f) + x[g,b,r,u+k+1] * f )
 //   out[g,b,m,r] = sum_u win[g,b,r,u] * w_t[b,m,u]        (f32 sum, cast)
@@ -15,46 +16,97 @@
 // window cast to the taps' type before the product, as the TPU kernel does.
 // The output comes out transposed (m before r), ready for the next pass.
 //
-// Design.  The TPU block is one whole (plane, image) window in VMEM (224 x
-// 384 at pass 1, 172 KB in bf16 before the taps); that does not fit a
-// Hopper block next to its tap tile.  Here one block computes a 128 (m) x 64
-// (r) output tile of one (g, b): it walks U in chunks of 64, builds the
-// lerped 64 x 64 window chunk in shared memory straight from the source
-// rows, stages the 128 x 64 chunk of w_t[b] beside it, and multiplies the
-// two (bf16 taps: WMMA 16x16x16 on the tensor cores, f32 accumulators in
-// registers, 8 warps of 16 m x 64 r each; f32 taps: chunks of 32 taps and
-// CUDA-core FMAs, 32 outputs a thread).  The accumulators go through shared
-// memory so the transposed output is written along r, coalesced.  Blocks of
-// one image are adjacent in the launch order, so w_t[b] is re-read from L2.
-// Any G, B, R, W, U and M are taken; ragged tiles are zero-filled.  Not yet
-// used: the band structure of w_t (most taps of a row of w_t are zero),
-// wgmma, TMA.
+// Bound (pretrain recipe, 2B = 256 canvases, bf16 taps), as
+// chip_smoke.py:matmul_bound reckons it: the bytes the function must move
+// over 3.35 TB/s.  That is the taps, k, f and the output once, and of each
+// row's source only what its image's nonzero taps need: with taps in
+// [lo, hi) over all M, source k + lo through k + hi.  Pass 1: (3, 256, 224,
+// 224) uint8 in, w_t (256, 128, 384) bf16 at slopes 1.0-2.5, (3, 256, 128,
+// 224) bf16 out: about 25 us (27 us if all the source that the U-tap window
+// reaches were counted).  Pass 2: (3, 256, 128, 224) bf16 in, w_t (256,
+// 128, 256) bf16 at slopes 1.0-1.75, (3, 256, 128, 128) f32 out: about
+// 24 us.  The multiply-adds of the nonzero taps (2-4 of a row's U) take
+// under 1 us of the bf16 tensor cores, and even the dense product (8.46 G
+// multiply-adds at pass 1) 17 us: the function is bound by bytes.
 //
-// Bound (pretrain recipe, 2B = 256 canvases, bf16 taps).  Pass 1: (3, 256,
-// 224, 224) uint8 in, w_t (256, 128, 384) bf16, (3, 256, 128, 224) bf16 out:
-// 8.46 G multiply-adds, 17 us at 989 TFLOP/s of bf16 tensor cores but 252 us
-// at 67 TFLOP/s of f32 FMA; about 108 MB moved, 32 us at 3.35 TB/s.  So on
-// the tensor cores it is bound by memory.  Pass 2: (3, 256, 128, 224) bf16
-// in, w_t (256, 128, 256) bf16, (3, 256, 128, 128) f32 out: 3.2 G
-// multiply-adds, about 111 MB, 33 us.
+// Design, bf16 taps (the warp's "matmul" route).  Each call is two launches
+// on the caller's stream:
+//  1. tap_band: for each (b, tile of kBandM = 32 outputs m) the first u with
+//     a nonzero tap and one past the last, int32 (B, ceil(M / 32), 2), (0, 0)
+//     for a tile whose taps are all zero.  It reads the taps once, with
+//     16-byte loads where U % 8 == 0 and the base is 16-byte aligned.
+//  2. shift_lerp_matmul_band: one block of 4 warps per (b, m tile, tile of
+//     kBandR = 32 rows r), so the recipe's 224 rows need no padded rows.  It
+//     rounds its tile's band out to the MMA depth of 16 and walks only that
+//     range, in chunks of 64 taps: it stages the band's taps once (cp.async,
+//     16 bytes, where alignment allows; in segments of at most 128 taps) and
+//     builds and multiplies the G planes together, kPlanes = 3 at a time (the
+//     TPU grid's inner g axis), so a plane group shares each tap fragment.
+//     The lerped window of a chunk is cut into tasks of 8 consecutive taps of
+//     one row, spread over all threads so that no lane idles on a narrow
+//     chunk; a task reads its 9 source elements once, with k and f read and
+//     clamped once per row.  The product runs on the tensor cores (ldmatrix
+//     and mma.sync m16n8k16 bf16, f32 accumulators, each warp 16 m x 16 r per
+//     plane), and the transposed tile goes out along r through shared memory.
+//  Why 32 outputs a tile: an area-tap row of slope s spans about s taps, so
+//  a tile of 32 reads at most 32 s + 3 of them: 83 at pass 1 (s <= 2.5) and
+//  59 at pass 2 (s <= 1.75), 96 and 64 after rounding, against 384 and 256
+//  dense.  A tile of 64 would double the taps staged and multiplied per
+//  output for about the same window lerps (the tiles' bands together cover
+//  the used range either way); one of 16 would round its bands up to 48-64
+//  taps and lerp more.
+//  Taps outside the band are exact zeros, so skipping them leaves every f32
+//  sum unchanged while the window is finite (a skipped term is w * 0 = +-0).
+//  A non-finite source value can propagate differently from the dense
+//  product: Inf * 0 = NaN there, nothing here.  Any G, B, R, W, U and M are
+//  taken; with more than kPlanes planes a multi-segment band is staged again
+//  for each group; dense taps (band = U) are the worst case.
+//  Where the time goes (chip_smoke.py's kernel phase, PERF.md): building the
+//  window, latency-bound on its source loads, then the product and the
+//  stores, one after another between the block's barriers.
+//
+// Design, f32 taps (precision="f32"): one block computes a 128 (m) x 64 (r)
+// output tile of one (g, b) over all U taps in chunks of 32, CUDA-core FMAs,
+// 32 outputs a thread.
+//
+// The design this one replaced computed the dense product: 128 x 64 output
+// tiles of one (g, b) over all U taps, with every tap and window element
+// staged by a scalar load and the taps re-read for every plane.  It took
+// 0.6828 ms at pass 1 and 0.2877 ms at pass 2 on an NVIDIA H100 80GB HBM3 at
+// 700 W (PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
 
 enum DType { kU8 = 0, kBF16 = 1, kF32 = 2 };
 
+// f32 taps
 constexpr int kBM = 128;       // outputs m per block
 constexpr int kBR = 64;        // rows r per block
-constexpr int kKC = 64;        // taps u per chunk (bf16 taps)
-constexpr int kKCF = 32;       // taps u per chunk (f32 taps)
+constexpr int kKCF = 32;       // taps u per chunk
 constexpr int kThreads = 256;  // 8 warps
-constexpr int kPadH = 8;       // bf16 row padding (keeps 32-byte alignment)
 constexpr int kPadF = 1;       // f32 row padding (bank spread)
 constexpr int kPadC = 4;       // accumulator staging row padding
+
+// bf16 taps, band-limited
+constexpr int kBandM = 32;                 // outputs m per tile and per band
+constexpr int kBandR = 32;                 // rows r per block
+constexpr int kBandKC = 64;                // taps per window chunk
+constexpr int kDepth = 16;                 // MMA depth
+constexpr int kSegMax = 128;               // most taps staged at once
+static_assert(kSegMax % kBandKC == 0, "segments hold whole chunks");
+constexpr int kPadH = 8;                   // bf16 row padding (keeps 16-byte rows)
+constexpr int kLdw = kBandKC + kPadH;      // window chunk row stride
+constexpr int kLdc = kBandR + kPadC;       // accumulator staging row stride
+constexpr int kBandThreads = 128;          // threads of a product block
+constexpr int kBandWarps = kBandThreads / 32;
+static_assert(kBandWarps == 2 * (kBandR / 16), "warps tile the output 2 (m) x kBandR / 16 (r)");
+constexpr int kPlanes = 3;                 // planes built and multiplied together
+constexpr int kTaskTaps = 8;               // window taps a thread builds at once
 
 __device__ __forceinline__ float to_f32(uint8_t v) { return static_cast<float>(v); }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -65,6 +117,324 @@ template <> __device__ __forceinline__ float from_f32<float>(float v) { return v
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
+
+__device__ __forceinline__ float lerp_rn(float a, float c, float fr) {
+  return __fadd_rn(__fmul_rn(a, 1.0f - fr), __fmul_rn(c, fr));
+}
+
+// Source element t of a row of w, 0 outside [0, w).
+template <typename In>
+__device__ __forceinline__ float tap(const In* __restrict__ src, int t, int w) {
+  return static_cast<unsigned>(t) < static_cast<unsigned>(w) ? to_f32(src[t]) : 0.0f;
+}
+
+// ---------------------------------------------------------------------------
+// The band pass
+
+// Widen [lo, hi) by the nonzero taps among the 8 bf16 taps in q, whose
+// first tap is u0.
+__device__ __forceinline__ void band_of_vector(uint4 q, int u0, int& lo, int& hi) {
+  const uint32_t words[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    if ((words[j / 2] >> (16 * (j % 2))) & 0x7fffu) {
+      lo = min(lo, u0 + j);
+      hi = max(hi, u0 + j + 1);
+    }
+  }
+}
+
+// One block per (b, tile of kBandM outputs): the tile's taps w_t[b, m0:m1, :]
+// are one contiguous span of (m1 - m0) * U elements.  -0 counts as zero, NaN
+// as nonzero, as `w_t != 0` does.
+__global__ void __launch_bounds__(kThreads)
+tap_band(const __nv_bfloat16* __restrict__ wt, int32_t* __restrict__ band, int m_count,
+         int u_count, bool vec) {
+  const int m_tiles = (m_count + kBandM - 1) / kBandM;
+  const int b = blockIdx.x / m_tiles, mt = blockIdx.x % m_tiles;
+  const int m0 = mt * kBandM, m1 = min(m0 + kBandM, m_count);
+  const long long n = static_cast<long long>(m1 - m0) * u_count;
+  const __nv_bfloat16* base = wt + (static_cast<long long>(b) * m_count + m0) * u_count;
+  int lo = INT_MAX, hi = 0;
+  if (vec) {  // U % 8 == 0: a 16-byte vector never crosses a row
+    const uint4* v = reinterpret_cast<const uint4*>(base);
+    for (long long i = threadIdx.x; i < n / 8; i += kThreads) {
+      const uint4 q = v[i];
+      if ((q.x | q.y | q.z | q.w) == 0) continue;
+      band_of_vector(q, static_cast<int>(i * 8 % u_count), lo, hi);
+    }
+  } else {
+    for (long long i = threadIdx.x; i < n; i += kThreads) {
+      if (__bfloat16_as_ushort(base[i]) & 0x7fffu) {
+        const int u = static_cast<int>(i % u_count);
+        lo = min(lo, u);
+        hi = max(hi, u + 1);
+      }
+    }
+  }
+  __shared__ int s_lo, s_hi;
+  if (threadIdx.x == 0) {
+    s_lo = INT_MAX;
+    s_hi = 0;
+  }
+  __syncthreads();
+  lo = __reduce_min_sync(0xffffffffu, lo);
+  hi = __reduce_max_sync(0xffffffffu, hi);
+  if (threadIdx.x % 32 == 0) {
+    atomicMin(&s_lo, lo);
+    atomicMax(&s_hi, hi);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const bool any = s_hi > 0;
+    band[2LL * blockIdx.x] = any ? s_lo : 0;
+    band[2LL * blockIdx.x + 1] = any ? s_hi : 0;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 taps: the band-limited product
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+
+// Four 8 x 8 bf16 matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8 and receives its share of each in r[0..3].
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s)
+               : "memory");
+}
+
+// d += a (16 x 16, row-major) * b (16 x 8, column-major), bf16 in, f32 sums.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Taps w_t[b, m0 + i, s0 + j] (i < kBandM, j < width, width a multiple of
+// 16) into sa[i * lds + j]; rows past M and taps past U are zero.  `vec`:
+// U % 8 == 0 and w_t 16-byte aligned, so each 8 taps are one cp.async.
+__device__ __forceinline__ void stage_taps(__nv_bfloat16* sa, int lds,
+                                           const __nv_bfloat16* __restrict__ wt,
+                                           int b, int m0, int m_count, int u_count,
+                                           int s0, int width, bool vec) {
+  const __nv_bfloat16* base = wt + static_cast<long long>(b) * m_count * u_count;
+  if (vec) {
+    const int per_row = width / 8;
+    for (int idx = threadIdx.x; idx < kBandM * per_row; idx += kBandThreads) {
+      const int i = idx / per_row, j = (idx % per_row) * 8;
+      const int m = m0 + i, u = s0 + j;
+      __nv_bfloat16* dst = sa + i * lds + j;
+      if (m < m_count && u < u_count)
+        cp_async16(dst, base + static_cast<long long>(m) * u_count + u);
+      else
+        *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < kBandM * width; idx += kBandThreads) {
+      const int i = idx / width, j = idx % width;
+      const int m = m0 + i, u = s0 + j;
+      sa[i * lds + j] = (m < m_count && u < u_count)
+                            ? base[static_cast<long long>(m) * u_count + u]
+                            : __float2bfloat16_rn(0.0f);
+    }
+  }
+}
+
+// The lerped windows win[g0 + p, r0 + i, c0 + j] (p < np planes, i < kBandR,
+// j < width, width a multiple of 16 and at most kBandKC) into
+// sw[(p * kBandR + i) * kLdw + j], in bf16.  The work is cut into tasks of
+// kTaskTaps consecutive taps of one row (no lane idles on a narrow chunk);
+// thread t takes tasks t, t + kBandThreads, ..., so neighbouring threads read
+// neighbouring source elements, and reads the kTaskTaps + 1 source elements a
+// task needs once.  Rows past R and taps past U are zero.  xg points at row 0
+// of plane (g0, b); planes are plane_elems apart.
+template <typename In>
+__device__ __forceinline__ void build_window(__nv_bfloat16* sw, const In* __restrict__ xg,
+                                             long long plane_elems, int np, const int* sk,
+                                             const float* sf, int r0, int r_count, int w,
+                                             int u_count, int c0, int width) {
+  const int per_row = width / kTaskTaps;  // tasks of a row
+  const int tasks = np * kBandR * per_row;
+  const float inv_per_row = 1.0f / static_cast<float>(per_row);
+  const bool tail = c0 + width > u_count;  // some taps past U
+#pragma unroll 2
+  for (int task = threadIdx.x; task < tasks; task += kBandThreads) {
+    // task / per_row in floats: exact, the quotient is far below 2^24 / kBandKC
+    const int pi = __float2int_rz((static_cast<float>(task) + 0.5f) * inv_per_row);
+    const int col = task - pi * per_row, i = pi % kBandR, p = pi / kBandR;
+    const int j = kTaskTaps * col, t0 = c0 + j + sk[i];
+    const In* src = xg + p * plane_elems + static_cast<long long>(r0 + i) * w;
+    const bool row_in = r0 + i < r_count;
+    float s[kTaskTaps + 1];
+#pragma unroll
+    for (int e = 0; e <= kTaskTaps; ++e) s[e] = row_in ? tap(src, t0 + e, w) : 0.0f;
+    const float fr = sf[i];
+    uint32_t packed[kTaskTaps / 2];
+#pragma unroll
+    for (int e = 0; e < kTaskTaps; e += 2) {
+      float v0 = lerp_rn(s[e], s[e + 1], fr), v1 = lerp_rn(s[e + 1], s[e + 2], fr);
+      if (tail) {
+        v0 = c0 + j + e < u_count ? v0 : 0.0f;
+        v1 = c0 + j + e + 1 < u_count ? v1 : 0.0f;
+      }
+      const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+      packed[e / 2] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+    static_assert(kTaskTaps == 8, "a task stores 16 bytes");
+    *reinterpret_cast<uint4*>(sw + (p * kBandR + i) * kLdw + j) =
+        make_uint4(packed[0], packed[1], packed[2], packed[3]);
+  }
+}
+
+// Shared memory of one block: the tap slab of `seg` taps, the windows of
+// kPlanes planes (whose space then stages the sums), k and f of the rows.
+__host__ __device__ constexpr size_t band_smem_bytes(int seg) {
+  return sizeof(__nv_bfloat16) * (kBandM * (seg + kPadH) + kPlanes * kBandR * kLdw) +
+         (sizeof(int) + sizeof(float)) * kBandR;
+}
+static_assert(sizeof(float) * kPlanes * kBandM * kLdc <=
+                  sizeof(__nv_bfloat16) * kPlanes * kBandR * kLdw,
+              "the sums are staged where the windows were");
+static_assert(band_smem_bytes(kSegMax) <= 48 * 1024, "no opt-in to more shared memory");
+
+// One block per (b, m tile, r tile), launch order b, m tile, r tile, so the
+// blocks of one image are adjacent.  Its steps are the band's chunks of
+// kBandKC taps for each group of kPlanes planes.
+template <typename In, typename Out>
+__global__ void __launch_bounds__(kBandThreads, 8)
+shift_lerp_matmul_band(const In* __restrict__ x, const int32_t* __restrict__ k,
+                       const float* __restrict__ f, const __nv_bfloat16* __restrict__ wt,
+                       const int32_t* __restrict__ band, Out* __restrict__ y,
+                       int g_count, int b_count, int r_count, int w, int u_count,
+                       int m_count, int m_tiles, int r_tiles, int seg, bool vec) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int lds = seg + kPadH;
+  __nv_bfloat16* sa = reinterpret_cast<__nv_bfloat16*>(smem);  // kBandM x lds taps
+  __nv_bfloat16* sw = sa + kBandM * lds;              // kPlanes x kBandR x kLdw windows
+  float* sc = reinterpret_cast<float*>(sw);           // kPlanes x kBandM x kLdc sums
+  int* sk = reinterpret_cast<int*>(sw + kPlanes * kBandR * kLdw);  // kBandR shifts
+  float* sf = reinterpret_cast<float*>(sk + kBandR);               // kBandR fractions
+
+  long long block = blockIdx.x;
+  const int r0 = static_cast<int>(block % r_tiles) * kBandR;
+  block /= r_tiles;
+  const int mt = static_cast<int>(block % m_tiles);
+  const int b = static_cast<int>(block / m_tiles);
+  const int m0 = mt * kBandM;
+
+  // k and f of the block's rows, read and clamped once for all planes
+  for (int i = threadIdx.x; i < kBandR; i += kBandThreads) {
+    const long long row = static_cast<long long>(b) * r_count + r0 + i;
+    sk[i] = r0 + i < r_count ? min(max(k[row], -(u_count + 2)), w) : 0;
+    sf[i] = r0 + i < r_count ? f[row] : 0.0f;
+  }
+
+  // the tile's band, rounded out to the MMA depth, within U rounded up
+  const long long bi = 2LL * (static_cast<long long>(b) * m_tiles + mt);
+  const int lo = band[bi], hi = band[bi + 1];
+  const int band_lo = lo / kDepth * kDepth;
+  const int u_end = (u_count + kDepth - 1) / kDepth * kDepth;
+  const int band_hi = hi > lo ? min((hi + kDepth - 1) / kDepth * kDepth, u_end) : band_lo;
+  const int n_seg = (band_hi - band_lo + seg - 1) / seg;
+  const int n_chunks = (band_hi - band_lo + kBandKC - 1) / kBandKC;
+  __syncthreads();
+
+  const long long plane_elems = static_cast<long long>(b_count) * r_count * w;
+  const long long out_planes = static_cast<long long>(b_count) * m_count * r_count;
+  Out* yb = y + (static_cast<long long>(b) * m_count + m0) * r_count + r0;
+  if (n_chunks == 0) {  // all taps of the tile are zero
+    for (int idx = threadIdx.x; idx < g_count * kBandM * kBandR; idx += kBandThreads) {
+      const int g = idx / (kBandM * kBandR), i = idx / kBandR % kBandM, j = idx % kBandR;
+      if (m0 + i < m_count && r0 + j < r_count)
+        yb[g * out_planes + static_cast<long long>(i) * r_count + j] = from_f32<Out>(0.0f);
+    }
+    return;
+  }
+
+  // warp (wm, wr) owns outputs m in wm * 16 + [0, 16) and r in wr * 16 + [0, 16)
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp / (kBandR / 16), wr = warp % (kBandR / 16);
+  // the rows this lane addresses for ldmatrix: taps (m, u) and window (r, u)
+  const int a_row = wm * 16 + lane % 8 + 8 * (lane / 8 % 2), a_col = 8 * (lane / 16);
+  const int b_row = wr * 16 + lane % 8 + 8 * (lane / 16), b_col = 8 * (lane / 8 % 2);
+  const int steps = (g_count + kPlanes - 1) / kPlanes * n_chunks;
+  const In* xb = x + static_cast<long long>(b) * r_count * w;
+  float acc[kPlanes][2][4];  // plane, 8-wide half of r, mma.sync accumulator
+  for (int st = 0; st < steps; ++st) {
+    const int g0 = st / n_chunks * kPlanes, c = st % n_chunks;
+    const int np = min(kPlanes, g_count - g0);
+    const int c0 = band_lo + c * kBandKC, width = min(kBandKC, band_hi - c0);
+    // the chunk's segment (with more than one, seg is a multiple of kBandKC)
+    const int s0 = band_lo + (c0 - band_lo) / seg * seg;
+    if (c == 0) {
+#pragma unroll
+      for (int p = 0; p < kPlanes; ++p)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[p][h][e] = 0.0f;
+    }
+    const bool stage = c0 == s0 && (n_seg > 1 || g0 == 0);  // one segment stays
+    if (stage) stage_taps(sa, lds, wt, b, m0, m_count, u_count, s0, min(s0 + seg, band_hi) - s0,
+                          vec);
+    build_window(sw, xb + g0 * plane_elems, plane_elems, np, sk, sf, r0, r_count, w, u_count,
+                 c0, width);
+    if (stage) cp_async_wait_all();
+    __syncthreads();
+    for (int kk = 0; kk < width; kk += kDepth) {
+      uint32_t a[4];
+      ldmatrix_x4(a, sa + a_row * lds + (c0 - s0) + kk + a_col);
+#pragma unroll
+      for (int p = 0; p < kPlanes; ++p) {
+        if (p >= np) break;
+        // B[u, r] = win[r, u]: the window rows give the column-major operand
+        uint32_t bq[4];
+        ldmatrix_x4(bq, sw + (p * kBandR + b_row) * kLdw + kk + b_col);
+        mma_bf16(acc[p][0], a, bq[0], bq[1]);
+        mma_bf16(acc[p][1], a, bq[2], bq[3]);
+      }
+    }
+    __syncthreads();
+    if (c == n_chunks - 1) {  // the group's sums, transposed, along r
+      const int gid = lane / 4, tig = lane % 4;
+#pragma unroll
+      for (int p = 0; p < kPlanes; ++p) {
+        if (p >= np) break;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float* dst = sc + (p * kBandM + wm * 16 + gid) * kLdc + wr * 16 + h * 8 + 2 * tig;
+          *reinterpret_cast<float2*>(dst) = make_float2(acc[p][h][0], acc[p][h][1]);
+          *reinterpret_cast<float2*>(dst + 8 * kLdc) = make_float2(acc[p][h][2], acc[p][h][3]);
+        }
+      }
+      __syncthreads();
+      for (int idx = threadIdx.x; idx < np * kBandM * kBandR; idx += kBandThreads) {
+        const int p = idx / (kBandM * kBandR), i = idx / kBandR % kBandM, j = idx % kBandR;
+        if (m0 + i < m_count && r0 + j < r_count)
+          yb[(g0 + p) * out_planes + static_cast<long long>(i) * r_count + j] =
+              from_f32<Out>(sc[(p * kBandM + i) * kLdc + j]);
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// f32 taps: CUDA-core FMAs over all of U
 
 struct Tile {
   int g, b, m0, r0;
@@ -83,114 +453,43 @@ __device__ __forceinline__ Tile tile_of(long long block, int g_count, int m_tile
   return t;
 }
 
-// The lerped window chunk win[r0 + i, u0 + j] (i < kBR, j < KC) into
-// sw[i * ld + j], cast to Wt; rows past R and taps past U are zero.
-template <int KC, typename In, typename Wt>
-__device__ __forceinline__ void load_window(Wt* sw, int ld, const In* __restrict__ x,
-                                            const int32_t* __restrict__ k,
-                                            const float* __restrict__ f,
-                                            const Tile& t, int b_count, int r_count,
-                                            int w, int u_count, int u0) {
+// The lerped window chunk win[r0 + i, u0 + j] (i < kBR, j < kKCF) into
+// sw[i * ld + j]; rows past R and taps past U are zero.
+template <typename In>
+__device__ __forceinline__ void load_window_f32(float* sw, int ld, const In* __restrict__ x,
+                                                const int32_t* __restrict__ k,
+                                                const float* __restrict__ f,
+                                                const Tile& t, int b_count, int r_count,
+                                                int w, int u_count, int u0) {
   const long long plane = static_cast<long long>(t.g) * b_count + t.b;
-  for (int idx = threadIdx.x; idx < kBR * KC; idx += kThreads) {
-    const int i = idx / KC, j = idx % KC;
+  for (int idx = threadIdx.x; idx < kBR * kKCF; idx += kThreads) {
+    const int i = idx / kKCF, j = idx % kKCF;
     const int r = t.r0 + i, u = u0 + j;
     float v = 0.0f;
     if (r < r_count && u < u_count) {
       const long long row = static_cast<long long>(t.b) * r_count + r;
       const int kk = min(max(k[row], -(u_count + 2)), w);
-      const float fr = f[row];
       const In* src = x + (plane * r_count + r) * static_cast<long long>(w);
-      const int t0 = u + kk, t1 = t0 + 1;
-      const float a = (t0 >= 0 && t0 < w) ? to_f32(src[t0]) : 0.0f;
-      const float c = (t1 >= 0 && t1 < w) ? to_f32(src[t1]) : 0.0f;
-      v = __fadd_rn(__fmul_rn(a, 1.0f - fr), __fmul_rn(c, fr));
+      v = lerp_rn(tap(src, u + kk, w), tap(src, u + kk + 1, w), f[row]);
     }
-    sw[i * ld + j] = from_f32<Wt>(v);
+    sw[i * ld + j] = v;
   }
 }
 
-// The tap chunk w_t[b, m0 + i, u0 + j] (i < kBM, j < KC) into sa[i * ld + j].
-template <int KC, typename Wt>
-__device__ __forceinline__ void load_taps(Wt* sa, int ld, const Wt* __restrict__ wt,
-                                          const Tile& t, int m_count, int u_count,
-                                          int u0) {
-  const Wt* base = wt + static_cast<long long>(t.b) * m_count * u_count;
-  for (int idx = threadIdx.x; idx < kBM * KC; idx += kThreads) {
-    const int i = idx / KC, j = idx % KC;
+// The tap chunk w_t[b, m0 + i, u0 + j] (i < kBM, j < kKCF) into sa[i * ld + j].
+__device__ __forceinline__ void load_taps_f32(float* sa, int ld, const float* __restrict__ wt,
+                                              const Tile& t, int m_count, int u_count,
+                                              int u0) {
+  const float* base = wt + static_cast<long long>(t.b) * m_count * u_count;
+  for (int idx = threadIdx.x; idx < kBM * kKCF; idx += kThreads) {
+    const int i = idx / kKCF, j = idx % kKCF;
     const int m = t.m0 + i, u = u0 + j;
-    sa[i * ld + j] = (m < m_count && u < u_count)
-                         ? base[static_cast<long long>(m) * u_count + u]
-                         : from_f32<Wt>(0.0f);
+    sa[i * ld + j] =
+        (m < m_count && u < u_count) ? base[static_cast<long long>(m) * u_count + u] : 0.0f;
   }
 }
 
-template <typename Out>
-__device__ __forceinline__ void store_tile(const float* sc, int ld, Out* __restrict__ y,
-                                           const Tile& t, int b_count, int m_count,
-                                           int r_count) {
-  const long long plane = static_cast<long long>(t.g) * b_count + t.b;
-  for (int idx = threadIdx.x; idx < kBM * kBR; idx += kThreads) {
-    const int i = idx / kBR, j = idx % kBR;
-    const int m = t.m0 + i, r = t.r0 + j;
-    if (m < m_count && r < r_count)
-      y[(plane * m_count + m) * r_count + r] = from_f32<Out>(sc[i * ld + j]);
-  }
-}
-
-// bf16 taps: WMMA on the tensor cores.
-template <typename In, typename Out>
-__global__ void __launch_bounds__(kThreads)
-shift_lerp_matmul_bf16(const In* __restrict__ x, const int32_t* __restrict__ k,
-                       const float* __restrict__ f, const __nv_bfloat16* __restrict__ wt,
-                       Out* __restrict__ y, int g_count, int b_count, int r_count, int w,
-                       int u_count, int m_count, int m_tiles, int r_tiles) {
-  using namespace nvcuda;
-  constexpr int lda = kKC + kPadH;
-  constexpr int ldc = kBR + kPadC;
-  constexpr int a_bytes = kBM * lda * 2;
-  constexpr int w_bytes = kBR * lda * 2;
-  constexpr int c_bytes = kBM * ldc * 4;
-  constexpr int smem_bytes = (a_bytes + w_bytes > c_bytes) ? a_bytes + w_bytes : c_bytes;
-  __shared__ __align__(128) unsigned char smem[smem_bytes];
-  __nv_bfloat16* sa = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sw = reinterpret_cast<__nv_bfloat16*>(smem + a_bytes);
-  float* sc = reinterpret_cast<float*>(smem);  // reused after the last chunk
-
-  const Tile t = tile_of(blockIdx.x, g_count, m_tiles, r_tiles);
-  const int warp = threadIdx.x / 32;  // owns m rows [16 warp, 16 warp + 16)
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kBR / 16];
-#pragma unroll
-  for (int j = 0; j < kBR / 16; ++j) wmma::fill_fragment(acc[j], 0.0f);
-
-  for (int u0 = 0; u0 < u_count; u0 += kKC) {
-    load_taps<kKC>(sa, lda, wt, t, m_count, u_count, u0);
-    load_window<kKC>(sw, lda, x, k, f, t, b_count, r_count, w, u_count, u0);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kKC; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, sa + warp * 16 * lda + kk, lda);
-#pragma unroll
-      for (int j = 0; j < kBR / 16; ++j) {
-        // B[u, r] = win[r, u]: the window chunk read column-major
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> bw;
-        wmma::load_matrix_sync(bw, sw + j * 16 * lda + kk, lda);
-        wmma::mma_sync(acc[j], a, bw, acc[j]);
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int j = 0; j < kBR / 16; ++j)
-    wmma::store_matrix_sync(sc + warp * 16 * ldc + j * 16, acc[j], ldc,
-                            wmma::mem_row_major);
-  __syncthreads();
-  store_tile(sc, ldc, y, t, b_count, m_count, r_count);
-}
-
-// f32 taps: CUDA-core FMAs, each thread 8 m x 4 r outputs.
+// Each thread 8 m x 4 r outputs.
 template <typename In, typename Out>
 __global__ void __launch_bounds__(kThreads)
 shift_lerp_matmul_f32(const In* __restrict__ x, const int32_t* __restrict__ k,
@@ -219,8 +518,8 @@ shift_lerp_matmul_f32(const In* __restrict__ x, const int32_t* __restrict__ k,
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
 
   for (int u0 = 0; u0 < u_count; u0 += kKCF) {
-    load_taps<kKCF>(sa, ld, wt, t, m_count, u_count, u0);
-    load_window<kKCF>(sw, ld, x, k, f, t, b_count, r_count, w, u_count, u0);
+    load_taps_f32(sa, ld, wt, t, m_count, u_count, u0);
+    load_window_f32(sw, ld, x, k, f, t, b_count, r_count, w, u_count, u0);
     __syncthreads();
     for (int u = 0; u < kKCF; ++u) {
       float a[8], c[4];
@@ -240,41 +539,78 @@ shift_lerp_matmul_f32(const In* __restrict__ x, const int32_t* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < 4; ++j) sc[(tm + 16 * i) * ldc + tr + 16 * j] = acc[i][j];
   __syncthreads();
-  store_tile(sc, ldc, y, t, b_count, m_count, r_count);
+  const long long plane = static_cast<long long>(t.g) * b_count + t.b;
+  for (int idx = threadIdx.x; idx < kBM * kBR; idx += kThreads) {
+    const int i = idx / kBR, j = idx % kBR;
+    const int m = t.m0 + i, r = t.r0 + j;
+    if (m < m_count && r < r_count)
+      y[(plane * m_count + m) * r_count + r] = from_f32<Out>(sc[i * ldc + j]);
+  }
 }
 
-template <typename In, typename Wt, typename Out>
-int launch(const void* x, const int32_t* k, const float* f, const void* wt, void* y,
-           int g, int b, int r, int w, int u, int m, cudaStream_t stream) {
+// ---------------------------------------------------------------------------
+// Launch
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+int launch_tap_band(const void* wt, int32_t* band, int b, int m, int u,
+                    cudaStream_t stream) {
+  const int m_tiles = (m + kBandM - 1) / kBandM;
+  const long long blocks = static_cast<long long>(b) * m_tiles;
+  if (blocks > 0x7fffffffLL) return -2;
+  if (blocks == 0) return 0;
+  const bool vec = u % 8 == 0 && aligned16(wt);
+  tap_band<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(wt), band, m, u, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename In, typename Out>
+int launch_band(const void* x, const int32_t* k, const float* f, const void* wt,
+                int32_t* band, void* y, int g, int b, int r, int w, int u, int m,
+                cudaStream_t stream) {
+  const int m_tiles = (m + kBandM - 1) / kBandM;
+  const int r_tiles = (r + kBandR - 1) / kBandR;
+  const long long blocks = static_cast<long long>(b) * m_tiles * r_tiles;
+  if (blocks > 0x7fffffffLL) return -2;
+  int rc = launch_tap_band(wt, band, b, m, u, stream);
+  if (rc != 0) return rc;
+  const int seg = max(kDepth, min((u + kDepth - 1) / kDepth * kDepth, kSegMax));
+  const size_t smem = band_smem_bytes(seg);
+  const bool vec = u % 8 == 0 && aligned16(wt);
+  shift_lerp_matmul_band<In, Out><<<static_cast<unsigned>(blocks), kBandThreads, smem,
+                                    stream>>>(
+      static_cast<const In*>(x), k, f, static_cast<const __nv_bfloat16*>(wt), band,
+      static_cast<Out*>(y), g, b, r, w, u, m, m_tiles, r_tiles, seg, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename In, typename Out>
+int launch_f32(const void* x, const int32_t* k, const float* f, const void* wt, void* y,
+               int g, int b, int r, int w, int u, int m, cudaStream_t stream) {
   const int m_tiles = (m + kBM - 1) / kBM;
   const int r_tiles = (r + kBR - 1) / kBR;
   const long long blocks = static_cast<long long>(g) * b * m_tiles * r_tiles;
   if (blocks > 0x7fffffffLL) return -2;
-  const dim3 grid(static_cast<unsigned>(blocks));
-  if constexpr (sizeof(Wt) == 2) {
-    shift_lerp_matmul_bf16<In, Out><<<grid, kThreads, 0, stream>>>(
-        static_cast<const In*>(x), k, f, static_cast<const __nv_bfloat16*>(wt),
-        static_cast<Out*>(y), g, b, r, w, u, m, m_tiles, r_tiles);
-  } else {
-    shift_lerp_matmul_f32<In, Out><<<grid, kThreads, 0, stream>>>(
-        static_cast<const In*>(x), k, f, static_cast<const float*>(wt),
-        static_cast<Out*>(y), g, b, r, w, u, m, m_tiles, r_tiles);
-  }
+  shift_lerp_matmul_f32<In, Out><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+      static_cast<const In*>(x), k, f, static_cast<const float*>(wt), static_cast<Out*>(y),
+      g, b, r, w, u, m, m_tiles, r_tiles);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename In>
 int dispatch_wt(const void* x, const int32_t* k, const float* f, const void* wt,
-                int wt_dtype, void* y, int out_dtype, int g, int b, int r, int w,
-                int u, int m, cudaStream_t s) {
+                int wt_dtype, int32_t* band, void* y, int out_dtype, int g, int b, int r,
+                int w, int u, int m, cudaStream_t s) {
+  if (wt_dtype == kBF16 && band == nullptr) return -1;
   if (wt_dtype == kBF16 && out_dtype == kBF16)
-    return launch<In, __nv_bfloat16, __nv_bfloat16>(x, k, f, wt, y, g, b, r, w, u, m, s);
+    return launch_band<In, __nv_bfloat16>(x, k, f, wt, band, y, g, b, r, w, u, m, s);
   if (wt_dtype == kBF16 && out_dtype == kF32)
-    return launch<In, __nv_bfloat16, float>(x, k, f, wt, y, g, b, r, w, u, m, s);
+    return launch_band<In, float>(x, k, f, wt, band, y, g, b, r, w, u, m, s);
   if (wt_dtype == kF32 && out_dtype == kBF16)
-    return launch<In, float, __nv_bfloat16>(x, k, f, wt, y, g, b, r, w, u, m, s);
+    return launch_f32<In, __nv_bfloat16>(x, k, f, wt, y, g, b, r, w, u, m, s);
   if (wt_dtype == kF32 && out_dtype == kF32)
-    return launch<In, float, float>(x, k, f, wt, y, g, b, r, w, u, m, s);
+    return launch_f32<In, float>(x, k, f, wt, y, g, b, r, w, u, m, s);
   return -1;
 }
 
@@ -283,24 +619,36 @@ int dispatch_wt(const void* x, const int32_t* k, const float* f, const void* wt,
 extern "C" {
 
 // Returns 0 on success, a cudaError_t code after a failed launch, -1 for a
-// type combination the kernel does not take, -2 for a grid too large.
-// Pointers are device pointers of contiguous (G, B, R, W) input, (B*R,) k
-// and f, (B, M, U) taps and (G, B, M, R) output.
+// type combination the kernel does not take (or bf16 taps without band
+// scratch), -2 for a grid too large.  Pointers are device pointers of
+// contiguous (G, B, R, W) input, (B*R,) k and f, (B, M, U) taps, (G, B, M, R)
+// output and, for bf16 taps, (B, ceil(M / 32), 2) int32 scratch for the band
+// pass, which runs first on the same stream.
 int peclr_shift_lerp_matmul(const void* x, int in_dtype, const int32_t* k,
-                            const float* f, const void* wt, int wt_dtype, void* y,
-                            int out_dtype, int g, int b, int r, int w, int u, int m,
-                            void* stream) {
+                            const float* f, const void* wt, int wt_dtype, int32_t* band,
+                            void* y, int out_dtype, int g, int b, int r, int w, int u,
+                            int m, void* stream) {
   if (static_cast<long long>(g) * b * r * m == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (in_dtype == kU8)
-    return dispatch_wt<uint8_t>(x, k, f, wt, wt_dtype, y, out_dtype, g, b, r, w, u, m, s);
+    return dispatch_wt<uint8_t>(x, k, f, wt, wt_dtype, band, y, out_dtype, g, b, r, w, u,
+                                m, s);
   if (in_dtype == kBF16)
-    return dispatch_wt<__nv_bfloat16>(x, k, f, wt, wt_dtype, y, out_dtype, g, b, r, w, u,
-                                      m, s);
+    return dispatch_wt<__nv_bfloat16>(x, k, f, wt, wt_dtype, band, y, out_dtype, g, b, r,
+                                      w, u, m, s);
   if (in_dtype == kF32)
-    return dispatch_wt<float>(x, k, f, wt, wt_dtype, y, out_dtype, g, b, r, w, u, m, s);
+    return dispatch_wt<float>(x, k, f, wt, wt_dtype, band, y, out_dtype, g, b, r, w, u, m,
+                              s);
   return -1;
 }
+
+// The band pass alone: (B, ceil(M / 32), 2) int32 of (B, M, U) bf16 taps
+// into `band`.
+int peclr_tap_band(const void* wt, int32_t* band, int b, int m, int u, void* stream) {
+  return launch_tap_band(wt, band, b, m, u, static_cast<cudaStream_t>(stream));
+}
+
+int peclr_tap_band_m() { return kBandM; }
 
 const char* peclr_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

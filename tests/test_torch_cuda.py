@@ -20,7 +20,10 @@ from peclr_tpu_torch.ops.shift_lerp import (
 from peclr_tpu_torch.ops.shift_lerp_matmul import (
     fused_shift_lerp_matmul,
     shift_lerp_matmul_plain,
+    tap_band,
+    tap_band_plain,
 )
+from peclr_tpu_torch.ops.warp_mxu import _area_matrix
 
 pytestmark = pytest.mark.cuda
 
@@ -140,6 +143,73 @@ def test_shift_matmul_kernel_matches_plain(card):
                 assert got.shape == (g, b, m, r)
                 assert (got.float() - ref.float()).abs().max().item() <= tol
     assert fused_shift_lerp_matmul.launches == launches + 8
+
+
+def _band_inputs(rng, card, g, b, r, w, u, m, slopes):
+    """uint8 rows, shifts past both clamps, the warp's area taps (bf16) at
+    slopes drawn from `slopes`."""
+    x = torch.from_numpy(
+        rng.integers(0, 256, (g, b, r, w)).astype(np.uint8)).to(card)
+    off = rng.uniform(-(u + 40), w + 40, (b * r,))
+    k = torch.from_numpy(
+        np.clip(np.floor(off), -(u + 2), w).astype(np.int32)).to(card)
+    f = torch.from_numpy((off - np.floor(off)).astype(np.float32)).to(card)
+    s = torch.from_numpy(rng.uniform(*slopes, (b,)).astype(np.float32))
+    w_t = _area_matrix(s, u, m, transposed=True).to(card, torch.bfloat16)
+    return x, k, f, w_t
+
+
+@pytest.mark.parametrize("u,slopes", [(384, (1.0, 2.5)), (100, (0.5, 0.75))])
+def test_band_kernel_matches_plain_at_recipe_slopes(card, u, slopes):
+    """Kernel 4 with bf16 taps walks each tile's band only: against the
+    dense plain version at area taps, ragged M, R and tiles (U = 100 stages
+    its taps element by element): f32 out within 1e-2, bf16 within 1.0."""
+    rng = np.random.default_rng(8)
+    x, k, f, w_t = _band_inputs(rng, card, 3, 5, 70, 224, u, 130, slopes)
+    launches = fused_shift_lerp_matmul.launches
+    for src in (x, x.to(torch.bfloat16)):
+        for out_dtype, tol in ((torch.float32, 1e-2), (torch.bfloat16, 1.0)):
+            got = fused_shift_lerp_matmul(src, k, f, w_t, out_dtype)
+            ref = shift_lerp_matmul_plain(src, k, f, w_t, out_dtype)
+            torch.cuda.synchronize()
+            assert got.shape == (3, 5, 130, 70)
+            assert (got.float() - ref.float()).abs().max().item() <= tol
+    assert fused_shift_lerp_matmul.launches == launches + 4
+
+
+def test_band_kernel_zero_and_last_taps(card):
+    """All-zero taps give exactly 0; a single tap at u = U - 1 (the band's
+    last rounded chunk) matches the plain version."""
+    rng = np.random.default_rng(9)
+    x, k, f, w_t = _band_inputs(rng, card, 3, 5, 70, 224, 100, 130, (0.5, 0.75))
+    zero = torch.zeros_like(w_t)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        got = fused_shift_lerp_matmul(x, k, f, zero, out_dtype)
+        torch.cuda.synchronize()
+        assert got.abs().max().item() == 0
+    last = torch.zeros_like(w_t)
+    last[..., -1] = 0.5
+    got = fused_shift_lerp_matmul(x, k, f, last, torch.float32)
+    ref = shift_lerp_matmul_plain(x, k, f, last, torch.float32)
+    torch.cuda.synchronize()
+    assert (got - ref).abs().max().item() <= 1e-2
+
+
+def test_tap_band_kernel_is_bit_exact(card):
+    """The band pass against its plain version: sparse bf16 taps with empty
+    tiles, U a multiple of 8 (16-byte loads) and not (scalar loads)."""
+    rng = np.random.default_rng(10)
+    for u in (384, 100):
+        taps = rng.uniform(-1, 1, (5, 130, u)).astype(np.float32)
+        taps[rng.uniform(0, 1, taps.shape) > 0.01] = 0
+        taps[1, :64] = 0
+        taps[2] = 0
+        w_t = torch.from_numpy(taps).to(card, torch.bfloat16)
+        launches = tap_band.launches
+        got = tap_band(w_t)
+        torch.cuda.synchronize()
+        assert tap_band.launches == launches + 1
+        assert torch.equal(got.cpu(), tap_band_plain(w_t.cpu()))
 
 
 @pytest.mark.parametrize("route", ["grouped", "matmul"])
