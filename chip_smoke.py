@@ -11,9 +11,11 @@ one JSON line that carries the card's name and power limit:
   2. build    nvcc builds csrc/*.cu for sm_90a (one process per source, all
               started together)
   3. kernel   each kernel against its plain PyTorch version: the grouped
-              shift at the leaderboard shapes (B = 120; raw mode bit-exact,
-              lerp within 1e-3 f32 / 1.0 bf16 on the 0-255 scale) and at the
-              pretrain recipe's, the flat (NHWC) shift (same bounds) and the
+              shift at the leaderboard shapes (B = 120) and at the pretrain
+              recipe's, and the flat (NHWC) shift, bit for bit (lerp and raw
+              mode), each on its 16-byte path, and on the scalar path at an
+              unaligned view, odd row bytes and ragged output tails, with
+              the path each case took and its profiler device time; the
               fused shift+matmul (f32 out within 1e-2, bf16 out within 1.0;
               zero taps exactly 0) at the pretrain recipe's shapes, an odd
               row count, rows clamped at both ends, dense, tent, zero and
@@ -25,7 +27,8 @@ one JSON line that carries the card's name and power limit:
               the same comparison); then the pretrain geometry (256 seeded
               canvases, 224 -> 128, rotations and crops from augment.draw,
               area taps) on all three routes, each against itself on plain
-              versions and against the others, the same bound
+              versions and against the others, the same bound; each warp's
+              CUDA-event ms and its profiler device ms
   5. slice    two-pass RN50 leaderboard inference on 4 batches of 120 seeded
               frames (the last one ragged) through the kernel, with the
               lerp in the kernel and in its raw mode, in turns; launch
@@ -136,6 +139,17 @@ def plain_shift():
          shift_lerp.fused_shift_lerp) = kernels
 
 
+def shift_paths():
+    """The path (vec16 / scalar) of the last launch of kernels 1-3."""
+    from peclr_tpu_torch.ops.shift_lerp import (
+        fused_shift_lerp,
+        fused_shift_lerp_grouped,
+    )
+
+    return {"grouped": fused_shift_lerp_grouped.last_path,
+            "flat": fused_shift_lerp.last_path}
+
+
 def kernel_counts():
     from peclr_tpu_torch.ops.shift_lerp import (
         fused_shift_lerp,
@@ -160,6 +174,8 @@ def reset_counts() -> None:
     fused_shift_lerp_grouped.raw_launches = 0
     fused_shift_lerp.launches = 0
     fused_shift_lerp_matmul.launches = 0
+    fused_shift_lerp_grouped.last_path = None
+    fused_shift_lerp.last_path = None
 
 
 # --------------------------------------------------------------------------
@@ -201,6 +217,10 @@ def grid_sample_shift(rows3, offsets, out, mode):
 
 
 def phase_kernel(torch, dev):
+    """Kernels 1 and 2 (the grouped shift, lerp and raw mode) bit for bit
+    against the plain version.  The leaderboard's and the pretrain recipe's
+    cases must take the 16-byte path; an unaligned view, W = 130 and ragged
+    output tails (out = 100, 129) the scalar one."""
     from peclr_tpu_torch.ops.shift_lerp import (
         fused_shift_lerp_grouped,
         shift_lerp_grouped_plain,
@@ -220,6 +240,12 @@ def phase_kernel(torch, dev):
         torch.bfloat16)
     odd = torch.randint(0, 256, (3, 1001, 224), generator=gen, device=dev,
                         dtype=torch.uint8)
+    # the same rows one byte into a buffer, and rows of 130 bytes
+    spare = torch.randint(0, 256, (3 * 1001 * 224 + 1,), generator=gen,
+                          device=dev, dtype=torch.uint8)
+    unaligned = spare[1:].view(3, 1001, 224)
+    w130 = torch.randint(0, 256, (3, 1001, 130), generator=gen, device=dev,
+                         dtype=torch.uint8)
     # pass-1 style offsets span both clamps: k < -(out + 2) and k > W
     wide = offsets(n_main, -(out + 40.0), 224 + 40.0)
     clamped = torch.cat([offsets(n_main // 2, -5000.0, -(out + 3.0)),
@@ -230,23 +256,35 @@ def phase_kernel(torch, dev):
                            dtype=torch.uint8)
     pre_bf = (torch.rand((3, n2, 224), generator=gen, device=dev) * 255).to(
         torch.bfloat16)
+    vec, scalar = "vec16", "scalar"
     cases = [
-        ("pass1_u8_to_bf16", True, u8, wide, torch.bfloat16, 1.0, out),
-        ("pass1_u8_to_f32", True, u8, wide, torch.float32, 1e-3, out),
-        ("pass2_bf16_to_bf16", True, bf, wide, torch.bfloat16, 1.0, out),
+        ("pass1_u8_to_bf16", True, u8, wide, torch.bfloat16, out, vec),
+        ("pass1_u8_to_f32", True, u8, wide, torch.float32, out, vec),
+        ("pass2_bf16_to_bf16", True, bf, wide, torch.bfloat16, out, vec),
         ("odd_n_1001_u8_to_bf16", True, odd, offsets(1001, -800.0, 260.0),
-         torch.bfloat16, 1.0, out),
-        ("clamped_rows_u8_to_f32", True, u8, clamped, torch.float32, 1e-3,
-         out),
+         torch.bfloat16, out, vec),
+        ("clamped_rows_u8_to_f32", True, u8, clamped, torch.float32, out, vec),
         ("pretrain_pass1_u8_to_bf16", True, pre_u8,
-         offsets(n1, -424.0, 264.0), torch.bfloat16, 1.0, 384),
+         offsets(n1, -424.0, 264.0), torch.bfloat16, 384, vec),
         ("pretrain_pass2_bf16_to_bf16", True, pre_bf,
-         offsets(n2, -296.0, 264.0), torch.bfloat16, 1.0, 256),
-        ("raw_pass1_u8", False, u8, wide, None, 0.0, out),
-        ("raw_pass2_bf16", False, bf, wide, None, 0.0, out),
-        ("raw_clamped_u8", False, u8, clamped, None, 0.0, out),
+         offsets(n2, -296.0, 264.0), torch.bfloat16, 256, vec),
+        ("unaligned_view_u8_to_bf16", True, unaligned,
+         offsets(1001, -800.0, 260.0), torch.bfloat16, out, scalar),
+        ("odd_w_130_u8_to_bf16", True, w130, offsets(1001, -800.0, 170.0),
+         torch.bfloat16, out, scalar),
+        ("ragged_out_100_u8_to_bf16", True, odd, offsets(1001, -130.0, 250.0),
+         torch.bfloat16, 100, scalar),
+        ("ragged_out_129_bf16_to_f32", True, odd.to(torch.bfloat16),
+         offsets(1001, -160.0, 250.0), torch.float32, 129, scalar),
+        ("raw_pass1_u8", False, u8, wide, None, out, vec),
+        ("raw_pass2_bf16", False, bf, wide, None, out, vec),
+        ("raw_clamped_u8", False, u8, clamped, None, out, vec),
+        ("raw_unaligned_view_u8", False, unaligned,
+         offsets(1001, -800.0, 260.0), None, out, scalar),
+        ("raw_ragged_out_129_u8", False, odd, offsets(1001, -160.0, 250.0),
+         None, 129, scalar),
     ]
-    for name, lerp, rows3, off, out_dtype, tol, out in cases:
+    for name, lerp, rows3, off, out_dtype, out, want_path in cases:
         k_true = torch.floor(off)
         k = k_true.clamp(-(out + 2), rows3.shape[2]).to(torch.int32)
         f = (off - k_true).to(torch.float32)
@@ -260,13 +298,12 @@ def phase_kernel(torch, dev):
 
         got, ref = kern(), plain()
         torch.cuda.synchronize()
-        if lerp:
-            max_abs = (got.float() - ref.float()).abs().max().item()
-            check(max_abs <= tol, f"{name}: max_abs {max_abs} > {tol}")
-        else:
-            check(torch.equal(got, ref), f"{name}: raw window not bit-exact")
-            max_abs = (got.float() - ref.float()).abs().max().item()
-        if name.startswith("clamped") or name.startswith("raw_clamped"):
+        path = fused_shift_lerp_grouped.last_path
+        check(path == want_path, f"{name}: took the {path} path, want "
+              f"{want_path}")
+        check(torch.equal(got, ref), f"{name}: not bit-exact")
+        max_abs = (got.float() - ref.float()).abs().max().item()
+        if "clamped" in name:
             check(got.abs().max().item() == 0, f"{name}: clamped rows not zero")
         g, n, w = rows3.shape
         bound, bound_by = shift_bound(rows3, k, out, got.element_size(), lerp)
@@ -278,8 +315,9 @@ def phase_kernel(torch, dev):
         row = {
             "case": name, "shape_in": [g, n, w], "out": out,
             "in_dtype": str(rows3.dtype), "out_dtype": str(got.dtype),
-            "lerp": lerp, "max_abs": max_abs, "tolerance": tol,
-            "ms": cuda_ms(kern, 20), "plain_ms": cuda_ms(plain, 5),
+            "lerp": lerp, "path": path, "max_abs": max_abs, "tolerance": 0.0,
+            "ms": cuda_ms(kern, 20), "device_ms": device_ms(kern, 10),
+            "plain_ms": cuda_ms(plain, 5),
             "bound_ms": bound, "bound_by": bound_by, "library_ms": library_ms,
         }
         results.append(row)
@@ -304,7 +342,9 @@ def flat_bound(rows, k, out_elems, c, out_bytes):
 def phase_flat_kernel(torch, dev):
     """Kernel 3 at the NHWC route's shapes of the pretrain recipe (2B = 256
     canvases of 224 x 3): pass 1 (57,344 rows of 672 uint8 -> 1,152 bf16),
-    pass 2 (32,768 rows of 672 bf16 -> 768 bf16)."""
+    pass 2 (32,768 rows of 672 bf16 -> 768 bf16), on the 16-byte path; then
+    the scalar path at an unaligned view, W = 130 pixels and a ragged tail
+    (out = 129 pixels).  Bit for bit against the plain version."""
     import torch.nn.functional as F
 
     from peclr_tpu_torch.ops.shift_lerp import (
@@ -325,23 +365,35 @@ def phase_flat_kernel(torch, dev):
 
     u8, bf, odd = (rows_of(n1, torch.uint8), rows_of(n2, torch.bfloat16),
                    rows_of(1001, torch.uint8))
+    # the rows of `odd`'s shape one byte into a buffer
+    unaligned = rows_of(1002, torch.uint8).view(-1)[1:1 + 1001 * w_px * c]
+    unaligned = unaligned.view(1001, w_px * c)
+    w130 = torch.randint(0, 256, (1001, 130 * c), generator=gen, device=dev,
+                         dtype=torch.uint8)
     clamped = torch.cat([offsets(n1 // 2, -5000.0, -(384 + 3.0)),
                          offsets(n1 - n1 // 2, w_px + 1.0, 5000.0)])
+    vec, scalar = "vec16", "scalar"
     cases = [
         ("flat_pass1_u8_to_bf16", u8, 384, offsets(n1, -424.0, 264.0),
-         torch.bfloat16, 1.0),
+         torch.bfloat16, vec),
         ("flat_pass1_u8_to_f32", u8, 384, offsets(n1, -424.0, 264.0),
-         torch.float32, 1e-3),
+         torch.float32, vec),
         ("flat_pass2_bf16_to_bf16", bf, 256, offsets(n2, -296.0, 264.0),
-         torch.bfloat16, 1.0),
+         torch.bfloat16, vec),
         ("flat_odd_n_1001_u8_to_bf16", odd, 384, offsets(1001, -424.0, 264.0),
-         torch.bfloat16, 1.0),
-        ("flat_clamped_rows_u8_to_f32", u8, 384, clamped, torch.float32, 1e-3),
+         torch.bfloat16, vec),
+        ("flat_clamped_rows_u8_to_f32", u8, 384, clamped, torch.float32, vec),
+        ("flat_unaligned_view_u8_to_bf16", unaligned, 384,
+         offsets(1001, -424.0, 264.0), torch.bfloat16, scalar),
+        ("flat_odd_w_130_u8_to_bf16", w130, 384, offsets(1001, -424.0, 170.0),
+         torch.bfloat16, scalar),
+        ("flat_ragged_out_129_u8_to_bf16", odd, 129,
+         offsets(1001, -160.0, 250.0), torch.bfloat16, scalar),
     ]
     results = []
-    for name, rows, out_w, off, out_dtype, tol in cases:
+    for name, rows, out_w, off, out_dtype, want_path in cases:
         k_true = torch.floor(off)
-        k = k_true.clamp(-(out_w + 2), w_px).to(torch.int32)
+        k = k_true.clamp(-(out_w + 2), rows.shape[1] // c).to(torch.int32)
         f = (off - k_true).to(torch.float32)
         out_elems = out_w * c
 
@@ -353,8 +405,11 @@ def phase_flat_kernel(torch, dev):
 
         got, ref = kern(), plain()
         torch.cuda.synchronize()
+        path = fused_shift_lerp.last_path
+        check(path == want_path, f"{name}: took the {path} path, want "
+              f"{want_path}")
+        check(torch.equal(got, ref), f"{name}: not bit-exact")
         max_abs = (got.float() - ref.float()).abs().max().item()
-        check(max_abs <= tol, f"{name}: max_abs {max_abs} > {tol}")
         if name.startswith("flat_clamped"):
             check(got.abs().max().item() == 0, f"{name}: clamped rows not zero")
         bound, bound_by = flat_bound(rows, k, out_elems, c, got.element_size())
@@ -367,8 +422,9 @@ def phase_flat_kernel(torch, dev):
         row = {
             "case": name, "shape_in": list(rows.shape), "c": c,
             "out_elems": out_elems, "in_dtype": str(rows.dtype),
-            "out_dtype": str(got.dtype), "max_abs": max_abs, "tolerance": tol,
-            "ms": cuda_ms(kern, 20), "plain_ms": cuda_ms(plain, 5),
+            "out_dtype": str(got.dtype), "path": path, "max_abs": max_abs,
+            "tolerance": 0.0, "ms": cuda_ms(kern, 20),
+            "device_ms": device_ms(kern, 10), "plain_ms": cuda_ms(plain, 5),
             "bound_ms": bound, "bound_by": bound_by, "library_ms": library_ms,
         }
         results.append(row)
@@ -607,7 +663,7 @@ def phase_recipe_warp(torch, dev):
               f"max_abs {max_abs} > 2.5")
         outs[route] = got
         rows[route] = {"max_abs_vs_plain": max_abs, "ms": cuda_ms(warp, 10),
-                       "plain_ms": plain_ms}
+                       "device_ms": device_ms(warp, 5), "plain_ms": plain_ms}
     for route in ROUTES:
         cross = (outs[route] - outs["grouped"]).abs().max().item()
         check(cross <= 2.5, f"recipe warp {route} vs grouped: {cross} > 2.5")
@@ -758,8 +814,14 @@ def phase_pretrain(torch, dev):
                 want = 2 * ACCUM if kname == kernel_of[route] else 0
                 check(launched == want, f"{route}: {kname} launched "
                       f"{launched} times in a step, want {want}")
+            paths = shift_paths()
+            if route in ("grouped", "nhwc"):
+                took = paths["grouped" if route == "grouped" else "flat"]
+                check(took == "vec16", f"{route}: the step's last shift took "
+                      f"the {took} path, want vec16")
             runs[route].append({
-                "loss": loss, "launches": counts, "seconds": seconds,
+                "loss": loss, "launches": counts, "paths": paths,
+                "seconds": seconds,
                 "ms_per_step": seconds * 1e3, "img_per_s": n / seconds,
                 "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
                 "allocated_before_bytes": before,
@@ -922,13 +984,14 @@ def main() -> int:
         ref = warp()
         plain_warp_ms = cuda_ms(warp, 3)
     warp_ms = cuda_ms(warp, 10)
+    warp_device_ms = device_ms(warp, 5)
     warp_abs = (got - ref).abs().max().item()
     check(got.dtype == torch.float32 and got.shape == (BATCH, 224, 224, 3),
           "warp output shape/dtype")
     check(warp_abs <= 2.5, f"warp kernel vs plain max_abs {warp_abs} > 2.5")
     emit("warp", geometry="pred_fh", batch=BATCH, out_hw=[224, 224],
          compute_dtype="bfloat16", max_abs=warp_abs, tolerance=2.5,
-         ms=warp_ms, plain_ms=plain_warp_ms)
+         ms=warp_ms, device_ms=warp_device_ms, plain_ms=plain_warp_ms)
     phase_recipe_warp(torch, dev)
 
     # ---- 5. the slice: two-pass RN50 inference ---------------------------------
@@ -1011,6 +1074,9 @@ def main() -> int:
             check(kp3d.shape == (N_FRAMES, 21, 3),
                   f"{mode}: kp3d shape {kp3d.shape}")
             check(bool(np.isfinite(kp3d).all()), f"{mode}: kp3d not finite")
+            run["path"] = shift_paths()["grouped"]
+            check(run["path"] == "vec16", f"{mode}: the slice's last shift "
+                  f"took the {run['path']} path, want vec16")
             launched = run["launches" if lerp_in_kernel else "raw_launches"]
             check(launched >= 4 * run["batches"],
                   f"{mode}: kernel launched {launched} times for "
@@ -1083,11 +1149,13 @@ def main() -> int:
             "ms": timed["ms"], "plain_ms": timed["plain_ms"],
             "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
             "library_ms": timed["library_ms"], "timed_case": timed_case,
-            **extra,
+            "device_ms": timed["device_ms"], **extra,
         }
 
     shift_src = "peclr_tpu_torch/csrc/shift_lerp.cu"
     matmul_of = {r["case"]: r for r in matmul_rows}
+    kernel_of = {r["case"]: r for r in kernel_rows}
+    flat_of = {r["case"]: r for r in flat_rows}
     kernels = [
         summary("shift_lerp_grouped", shift_src,
                 "peclr_tpu/ops/pallas/barrel_shift.py:100",
@@ -1095,16 +1163,24 @@ def main() -> int:
                 [r for r in kernel_rows if r["lerp"]], "pass2_bf16_to_bf16",
                 launches_per_pretrain_step=pretrain_runs["grouped"][0][
                     "launches"]["shift_lerp_grouped"],
+                path=kernel_of["pass2_bf16_to_bf16"]["path"],
                 pretrain_ms={r["case"]: r["ms"] for r in kernel_rows
-                             if r["case"].startswith("pretrain_")}),
+                             if r["case"].startswith("pretrain_")},
+                pretrain_device_ms={r["case"]: r["device_ms"]
+                                    for r in kernel_rows
+                                    if r["case"].startswith("pretrain_")}),
         summary("shift_raw_grouped", shift_src,
                 "peclr_tpu/ops/pallas/barrel_shift.py:118",
                 runs["raw_kernel"][0]["raw_launches"],
-                [r for r in kernel_rows if not r["lerp"]], "raw_pass2_bf16"),
+                [r for r in kernel_rows if not r["lerp"]], "raw_pass2_bf16",
+                path=kernel_of["raw_pass2_bf16"]["path"]),
         summary("shift_lerp_flat", shift_src,
                 "peclr_tpu/ops/pallas/barrel_shift.py:163",
                 pretrain_runs["nhwc"][0]["launches"]["shift_lerp_flat"],
-                flat_rows, "flat_pass2_bf16_to_bf16"),
+                flat_rows, "flat_pass2_bf16_to_bf16",
+                path=flat_of["flat_pass2_bf16_to_bf16"]["path"],
+                pass1_ms=flat_of["flat_pass1_u8_to_bf16"]["ms"],
+                pass1_device_ms=flat_of["flat_pass1_u8_to_bf16"]["device_ms"]),
         summary("shift_lerp_matmul",
                 "peclr_tpu_torch/csrc/shift_lerp_matmul.cu",
                 "peclr_tpu/ops/pallas/barrel_shift.py:392",
@@ -1114,7 +1190,6 @@ def main() -> int:
                     "grouped_route_ms"],
                 band_taps_mean=matmul_of["matmul_pass1_u8_to_bf16"][
                     "band_taps_mean"],
-                device_ms=matmul_of["matmul_pass1_u8_to_bf16"]["device_ms"],
                 pass2_ms=matmul_of["matmul_pass2_bf16_to_f32"]["ms"],
                 band_pass_device_ms=matmul_of["tap_band_pass1"]["device_ms"]),
     ]

@@ -20,7 +20,9 @@ cast to the output type; the raw window keeps the input type, bit for bit.
 
 `fused_shift_lerp_grouped` and `fused_shift_lerp` launch the kernel for CUDA
 tensors and count each launch (`fused_shift_lerp_grouped.launches` for the
-lerp, `.raw_launches` for the raw mode, `fused_shift_lerp.launches`).  CPU
+lerp, `.raw_launches` for the raw mode, `fused_shift_lerp.launches`); each
+records the kernel path of its last launch in `.last_path`, as `shift_path`
+chose it: "vec16" (16-byte staged rows and stores) or "scalar".  CPU
 tensors take `shift_lerp_grouped_plain` / `shift_lerp_flat_plain`, the
 PyTorch versions of the same arithmetic.
 """
@@ -38,6 +40,27 @@ from peclr_tpu_torch import build
 #: dtype codes of csrc/shift_lerp.cu
 _DTYPE_CODES = {torch.uint8: 0, torch.bfloat16: 1, torch.float32: 2}
 _INT32_MAX = 2**31 - 1
+#: the widest source row, in bytes, that the kernel's 16-byte path stages
+#: (kMaxRowBytes of csrc/shift_lerp.cu: two buffers of row + 32 bytes for
+#: each of 8 warps within 48 KB of shared memory)
+VEC16_MAX_ROW_BYTES = 48 * 1024 // 16 - 32
+
+
+def shift_path(in_ptr: int, in_row_bytes: int, out_ptr: int,
+               out_row_bytes: int) -> str:
+    """The kernel path for operands at these addresses and row sizes:
+    "vec16" when both bases and both row sizes are multiples of 16 bytes and
+    the source row fits the staging buffers, else "scalar".  Both paths are
+    the CUDA kernel."""
+    aligned = all(v % 16 == 0 for v in (in_ptr, in_row_bytes, out_ptr,
+                                         out_row_bytes))
+    return ("vec16" if aligned and in_row_bytes <= VEC16_MAX_ROW_BYTES
+            else "scalar")
+
+
+def _path_of(rows: torch.Tensor, out: torch.Tensor) -> str:
+    return shift_path(rows.data_ptr(), rows.shape[-1] * rows.element_size(),
+                      out.data_ptr(), out.shape[-1] * out.element_size())
 
 
 def _out_dtype(rows3: torch.Tensor, out_dtype, lerp: bool) -> torch.dtype:
@@ -72,7 +95,7 @@ def shift_lerp_grouped_plain(rows3: torch.Tensor, k: torch.Tensor,
     return (window[..., :-1] * (1.0 - fr) + window[..., 1:] * fr).to(out_dtype)
 
 
-def _check_cuda_operands(rows3, k, f, out_elems, out_dtype, lerp):
+def _check_cuda_operands(rows3, k, f, out_elems, out_dtype, lerp, c=1):
     if rows3.dim() != 3:
         raise ValueError(f"rows3 must be (G, N, W), got {tuple(rows3.shape)}")
     g, n, w = rows3.shape
@@ -80,7 +103,7 @@ def _check_cuda_operands(rows3, k, f, out_elems, out_dtype, lerp):
         raise TypeError(f"unsupported dtypes {rows3.dtype} -> {out_dtype}")
     if lerp and out_dtype == torch.uint8:
         raise TypeError("the lerp writes bf16 or f32")
-    if max(w + out_elems + 2, n) > _INT32_MAX:
+    if max(w + out_elems + 2 * c + 16, n) > _INT32_MAX:
         raise ValueError("row width + window and row count must fit int32")
     if k.shape != (n,) or k.dtype != torch.int32:
         raise ValueError(f"k must be int32 of shape ({n},)")
@@ -103,7 +126,7 @@ def _library() -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
             ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
-            ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_void_p,
         ]
         flat = lib.peclr_shift_lerp_flat
         flat.restype = ctypes.c_int
@@ -111,7 +134,7 @@ def _library() -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
             ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
-            ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_void_p,
         ]
         lib.peclr_cuda_error_string.restype = ctypes.c_char_p
         lib.peclr_cuda_error_string.argtypes = [ctypes.c_int]
@@ -120,8 +143,10 @@ def _library() -> ctypes.CDLL:
 
 def _raise_on(rc: int, lib: ctypes.CDLL, what: str) -> None:
     if rc != 0:
-        reason = ("unsupported dtypes" if rc < 0 else
-                  lib.peclr_cuda_error_string(rc).decode())
+        reason = {-1: "unsupported dtypes",
+                  -2: "operands unfit for the 16-byte path"}.get(rc)
+        if reason is None:
+            reason = lib.peclr_cuda_error_string(rc).decode()
         raise RuntimeError(f"{what} kernel launch failed: {reason}")
 
 
@@ -143,15 +168,18 @@ def fused_shift_lerp_grouped(rows3: torch.Tensor, k: torch.Tensor,
     _check_cuda_operands(rows3, k, f, out_elems, out_dtype, lerp)
     g, n, w = rows3.shape
     out = torch.empty((g, n, out_elems), dtype=out_dtype, device=rows3.device)
+    path = _path_of(rows3, out)
     lib = _library()
     with torch.cuda.device(rows3.device):
         stream = torch.cuda.current_stream(rows3.device).cuda_stream
         rc = lib.peclr_shift_lerp_grouped(
             rows3.data_ptr(), _DTYPE_CODES[rows3.dtype], k.data_ptr(),
             f.data_ptr() if lerp else None, out.data_ptr(),
-            _DTYPE_CODES[out_dtype], int(lerp), g, n, w, out_elems, stream,
+            _DTYPE_CODES[out_dtype], int(lerp), g, n, w, out_elems,
+            int(path == "vec16"), stream,
         )
     _raise_on(rc, lib, "shift_lerp")
+    fused_shift_lerp_grouped.last_path = path
     if lerp:
         fused_shift_lerp_grouped.launches += 1
     else:
@@ -161,6 +189,7 @@ def fused_shift_lerp_grouped(rows3: torch.Tensor, k: torch.Tensor,
 
 fused_shift_lerp_grouped.launches = 0
 fused_shift_lerp_grouped.raw_launches = 0
+fused_shift_lerp_grouped.last_path = None
 
 
 def shift_lerp_flat_plain(rows: torch.Tensor, k: torch.Tensor,
@@ -194,23 +223,26 @@ def fused_shift_lerp(rows: torch.Tensor, k: torch.Tensor, f: torch.Tensor,
     if rows.dim() != 2 or c < 1:
         raise ValueError(f"rows must be (N, W*C) with C >= 1, got "
                          f"{tuple(rows.shape)}, C = {c}")
-    _check_cuda_operands(rows[None], k, f, out_elems, out_dtype, True)
+    _check_cuda_operands(rows[None], k, f, out_elems, out_dtype, True, c)
     n, w = rows.shape
     out = torch.empty((n, out_elems), dtype=out_dtype, device=rows.device)
+    path = _path_of(rows, out)
     lib = _library()
     with torch.cuda.device(rows.device):
         stream = torch.cuda.current_stream(rows.device).cuda_stream
         rc = lib.peclr_shift_lerp_flat(
             rows.data_ptr(), _DTYPE_CODES[rows.dtype], k.data_ptr(),
             f.data_ptr(), out.data_ptr(), _DTYPE_CODES[out_dtype], n, w,
-            out_elems, c, stream,
+            out_elems, c, int(path == "vec16"), stream,
         )
     _raise_on(rc, lib, "shift_lerp_flat")
+    fused_shift_lerp.last_path = path
     fused_shift_lerp.launches += 1
     return out
 
 
 fused_shift_lerp.launches = 0
+fused_shift_lerp.last_path = None
 
 
 def shift_rows(images: torch.Tensor, offsets: torch.Tensor, out_w: int,

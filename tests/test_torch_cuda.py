@@ -11,7 +11,9 @@ import numpy as np
 import pytest
 import torch
 
+from peclr_tpu_torch.ops import shift_lerp
 from peclr_tpu_torch.ops.shift_lerp import (
+    VEC16_MAX_ROW_BYTES,
     fused_shift_lerp,
     fused_shift_lerp_grouped,
     shift_lerp_flat_plain,
@@ -115,6 +117,140 @@ def test_flat_shift_kernel_matches_plain(card):
             torch.cuda.synchronize()
             assert (got.float() - ref.float()).abs().max().item() <= tol
     assert fused_shift_lerp.launches == launches + 6
+
+
+_LERP_PAIRS = [(a, b) for a in (torch.uint8, torch.bfloat16, torch.float32)
+               for b in (torch.bfloat16, torch.float32)]
+
+
+def _shifts(rng, card, n, w, out, clamp_both=False):
+    """k past both clamps (or, with clamp_both, rows clamped on both sides
+    only), and fractions."""
+    if clamp_both:
+        k = np.concatenate([rng.integers(-5000, -(out + 2), n // 2),
+                            rng.integers(w, 5000, n - n // 2)])
+    else:
+        k = rng.integers(-(out + 12), w + 12, n)
+    return (torch.from_numpy(k.astype(np.int32)).to(card),
+            torch.from_numpy(rng.uniform(0, 1, n).astype(np.float32)).to(card))
+
+
+def _grouped_exact(src, k, f, out, out_dtype, lerp, path):
+    got = fused_shift_lerp_grouped(src, k, f if lerp else None, out,
+                                   out_dtype if lerp else None, lerp)
+    ref = shift_lerp_grouped_plain(src, k, f if lerp else None, out,
+                                   out_dtype if lerp else None, lerp)
+    torch.cuda.synchronize()
+    assert fused_shift_lerp_grouped.last_path == path
+    assert torch.equal(got, ref)
+    return got
+
+
+@pytest.mark.parametrize("in_dtype,out_dtype", _LERP_PAIRS)
+@pytest.mark.parametrize("w,out", [(224, 768), (224, 384), (224, 256)])
+def test_shift_vec16_path_is_bit_exact(card, in_dtype, out_dtype, w, out):
+    """The 16-byte path at the leaderboard's and the pretrain recipe's row
+    widths, small N, every lerp type pair: bit for bit the plain version."""
+    rng = np.random.default_rng(11)
+    n = 96
+    x = torch.from_numpy(rng.integers(0, 256, (3, n, w)).astype(np.uint8))
+    k, f = _shifts(rng, card, n, w, out)
+    _grouped_exact(x.to(card, in_dtype), k, f, out, out_dtype, True, "vec16")
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,out", [(1001, 768), (1001, 100), (1001, 129)])
+def test_shift_raw_mode_keeps_the_bits(card, dtype, n, out):
+    """The raw mode (integer shift) on both paths, odd N and ragged tails:
+    torch.equal with the plain version, in the input type."""
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.integers(0, 256, (3, n, 224)).astype(np.uint8))
+    k, f = _shifts(rng, card, n, 224, out)
+    path = ("vec16" if out * torch.empty((), dtype=dtype).element_size() % 16
+            == 0 else "scalar")
+    got = _grouped_exact(x.to(card, dtype), k, f, out, None, False, path)
+    assert got.dtype == dtype
+
+
+@pytest.mark.parametrize("in_dtype,out_dtype", _LERP_PAIRS)
+@pytest.mark.parametrize("out", [100, 129])
+def test_shift_ragged_tails_are_bit_exact(card, in_dtype, out_dtype, out):
+    """Output rows that are not whole 16-byte runs (100 bf16 is 200 bytes,
+    129 anything) take the scalar path; 100 f32 (400 bytes) the 16-byte
+    one.  N = 1001."""
+    rng = np.random.default_rng(13)
+    n = 1001
+    x = torch.from_numpy(rng.integers(0, 256, (3, n, 224)).astype(np.uint8))
+    k, f = _shifts(rng, card, n, 224, out)
+    row_bytes = out * torch.empty((), dtype=out_dtype).element_size()
+    path = "vec16" if row_bytes % 16 == 0 else "scalar"
+    _grouped_exact(x.to(card, in_dtype), k, f, out, out_dtype, True, path)
+
+
+def test_shift_scalar_path_unaligned_and_odd_width(card):
+    """The scalar path: an unaligned contiguous view (one byte into a
+    buffer) and W = 130 (130-byte rows), bit for bit."""
+    rng = np.random.default_rng(14)
+    n, out = 1001, 768
+    buf = torch.from_numpy(
+        rng.integers(0, 256, 3 * n * 224 + 1).astype(np.uint8)).to(card)
+    k, f = _shifts(rng, card, n, 224, out)
+    view = buf[1:].view(3, n, 224)
+    for lerp in (True, False):
+        _grouped_exact(view, k, f, out, torch.bfloat16, lerp, "scalar")
+    odd = torch.from_numpy(
+        rng.integers(0, 256, (3, n, 130)).astype(np.uint8)).to(card)
+    k, f = _shifts(rng, card, n, 130, out)
+    for lerp in (True, False):
+        _grouped_exact(odd, k, f, out, torch.float32, lerp, "scalar")
+
+
+def test_shift_clamped_rows_are_zero(card):
+    """Rows clamped on both sides read no source: exactly zero on both
+    paths, lerp and raw."""
+    rng = np.random.default_rng(15)
+    n, out = 1001, 768
+    x = torch.from_numpy(
+        rng.integers(1, 256, (3, n, 224)).astype(np.uint8)).to(card)
+    k, f = _shifts(rng, card, n, 224, out, clamp_both=True)
+    for src, path in ((x, "vec16"), (x[:, :, :-1].contiguous(), "scalar")):
+        for lerp in (True, False):
+            got = _grouped_exact(src, k, f, out, torch.float32, lerp, path)
+            assert got.abs().max().item() == 0
+
+
+@pytest.mark.parametrize("c", [1, 3, 4])
+def test_flat_shift_is_bit_exact(card, c):
+    """Kernel 3 at C = 1, 3 and 4, every lerp type pair, N = 1001, with a
+    ragged tail (out = 129 pixels), and rows clamped on both sides: bit for
+    bit the plain version; the path follows the row bytes."""
+    rng = np.random.default_rng(16 + c)
+    n, w_px = 1001, 224
+    x = torch.from_numpy(rng.integers(0, 256, (n, w_px * c)).astype(np.uint8))
+    for out_w in (384, 129):
+        k, f = _shifts(rng, card, n, w_px, out_w)
+        for in_dtype, out_dtype in _LERP_PAIRS:
+            src = x.to(card, in_dtype)
+            got = fused_shift_lerp(src, k, f, out_w * c, c, out_dtype)
+            ref = shift_lerp_flat_plain(src, k, f, out_w * c, c, out_dtype)
+            torch.cuda.synchronize()
+            assert fused_shift_lerp.last_path == shift_lerp._path_of(src, got)
+            assert torch.equal(got, ref)
+    k, f = _shifts(rng, card, n, w_px, 384, clamp_both=True)
+    got = fused_shift_lerp(x.to(card), k, f, 384 * c, c, torch.float32)
+    torch.cuda.synchronize()
+    assert got.abs().max().item() == 0
+
+
+def test_vec16_row_limit_matches_the_kernel(card):
+    """The wrapper's widest 16-byte row is the kernel's; a wider row takes
+    the scalar path and stays exact."""
+    assert shift_lerp._library().peclr_shift_max_row_bytes() == VEC16_MAX_ROW_BYTES
+    rng = np.random.default_rng(20)
+    n, w, out = 40, VEC16_MAX_ROW_BYTES + 16, 256
+    x = torch.from_numpy(rng.integers(0, 256, (1, n, w)).astype(np.uint8))
+    k, f = _shifts(rng, card, n, w, out)
+    _grouped_exact(x.to(card), k, f, out, torch.bfloat16, True, "scalar")
 
 
 def test_shift_matmul_kernel_matches_plain(card):

@@ -149,3 +149,27 @@ def test_no_plain_fallback_off_the_cpu():
     f = torch.empty((4,), device="meta")
     with pytest.raises(ValueError, match="no shift kernel"):
         fused_shift_lerp(rows, k, f, 24, 3)
+
+
+@pytest.mark.parametrize("c", [1, 3, 4])
+def test_flat_tails_match_pallas_interpret(rng, c):
+    """The plain version at N = 1001, W = 130 pixels and out = 129 pixels
+    (odd row bytes and a ragged tail), against `_kernel(grouped=False)` in
+    interpret mode on inputs padded to its grid (N to 1024, elements to
+    multiples of 128): zero elements past the row and outputs past the
+    window change none of the first out*C outputs.  f32 within 1e-4."""
+    n, w_px, out_w = 1001, 130, 129
+    rows, k, f = _inputs(rng, n, w_px, c, out_w, np.uint8)
+    in_elems = -(-w_px * c // 128) * 128
+    out_elems = -(-out_w * c // 128) * 128
+    padded = np.zeros((1024, in_elems), np.uint8)
+    padded[:n, :w_px * c] = rows
+    kp, fp = np.zeros(1024, np.int32), np.zeros(1024, np.float32)
+    kp[:n], fp[:n] = k, f
+    ref = np.asarray(jax_flat(jnp.asarray(padded), jnp.asarray(kp),
+                              jnp.asarray(fp), out_elems, c,
+                              out_dtype=jnp.float32, interpret=True))
+    got = shift_lerp_flat_plain(torch.from_numpy(rows), torch.from_numpy(k),
+                                torch.from_numpy(f), out_w * c, c,
+                                torch.float32).numpy()
+    np.testing.assert_allclose(got, ref[:n, :out_w * c], atol=1e-4, rtol=0)

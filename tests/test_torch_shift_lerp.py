@@ -15,8 +15,10 @@ from peclr_tpu.ops.pallas.barrel_shift import (
 )
 from peclr_tpu_torch.ops import shift_lerp
 from peclr_tpu_torch.ops.shift_lerp import (
+    VEC16_MAX_ROW_BYTES,
     fused_shift_lerp_grouped,
     shift_lerp_grouped_plain,
+    shift_path,
 )
 
 
@@ -180,3 +182,67 @@ def test_operand_checks(rng):
     with pytest.raises(TypeError):
         check(x, kt, ft, 24, torch.uint8, True)
 
+
+
+def _pad_to(a, axis, size):
+    widths = [(0, 0)] * a.ndim
+    widths[axis] = (0, size - a.shape[axis])
+    return np.pad(a, widths)
+
+
+@pytest.mark.parametrize("w,out,lerp", [
+    (224, 100, True),   # a ragged tail: 100 bf16 outputs are 200 bytes a row
+    (224, 129, True),
+    (130, 100, True),   # odd source row bytes
+    (224, 129, False),
+    (130, 129, False),
+])
+def test_tails_match_pallas_interpret(rng, w, out, lerp):
+    """The plain version at N = 1001 and widths the Pallas kernel does not
+    take, against that kernel in interpret mode on inputs padded to its
+    grid (N to 1024, W and out to 256): zero columns past W and outputs past
+    `out` change none of the first `out` outputs, since a shift clamped at
+    either width leaves them all reading zero.  f32 within 1e-4; raw
+    bit-exact."""
+    g, n = 3, 1001
+    rows, k, f = _inputs(rng, g, n, w, out, np.uint8)
+    padded = _pad_to(_pad_to(rows, 1, 1024), 2, 256)
+    ref = np.asarray(jax_grouped(
+        jnp.asarray(padded), jnp.asarray(_pad_to(k, 0, 1024)),
+        jnp.asarray(_pad_to(f, 0, 1024)) if lerp else None, 256,
+        out_dtype=jnp.float32 if lerp else jnp.bfloat16, interpret=True,
+        lerp=lerp))[:, :n, :out]
+    got = shift_lerp_grouped_plain(
+        torch.from_numpy(rows), torch.from_numpy(k),
+        torch.from_numpy(f) if lerp else None, out,
+        out_dtype=torch.float32 if lerp else None, lerp=lerp).numpy()
+    assert got.shape == (g, n, out)
+    if lerp:
+        np.testing.assert_allclose(got, ref, atol=1e-4, rtol=0)
+    else:
+        np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("in_ptr,in_row,out_ptr,out_row,want", [
+    (0, 224, 256, 768 * 2, "vec16"),   # the recipe's uint8 rows -> bf16
+    (1, 224, 256, 768 * 2, "scalar"),  # an unaligned base (a view at byte 1)
+    (0, 130, 256, 768 * 2, "scalar"),  # odd source row bytes (W = 130 uint8)
+    (0, 224, 256, 100 * 4, "vec16"),   # f32 output: 100 outputs, 400 bytes
+    (0, 224, 256, 100 * 2, "scalar"),  # bf16 output: 100 outputs, 200 bytes
+    (0, 224, 8, 768 * 2, "scalar"),    # an unaligned output base
+    (0, VEC16_MAX_ROW_BYTES, 0, 512, "vec16"),
+    (0, VEC16_MAX_ROW_BYTES + 16, 0, 512, "scalar"),  # too wide to stage
+])
+def test_shift_path_choice(in_ptr, in_row, out_ptr, out_row, want):
+    """The wrapper's choice between the kernel's two paths, pinned as the
+    pure function it is."""
+    assert shift_path(in_ptr, in_row, out_ptr, out_row) == want
+
+
+def test_path_of_tensors_follows_their_addresses():
+    """A contiguous tensor at an aligned base takes the 16-byte path, the
+    same rows as a view one byte into a buffer the scalar one."""
+    buf = torch.zeros(3 * 8 * 224 + 1, dtype=torch.uint8)
+    out = torch.empty((3, 8, 768), dtype=torch.bfloat16)
+    assert shift_lerp._path_of(buf[:-1].view(3, 8, 224), out) == "vec16"
+    assert shift_lerp._path_of(buf[1:].view(3, 8, 224), out) == "scalar"
