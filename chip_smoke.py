@@ -44,21 +44,38 @@ one JSON line that carries the card's name and power limit:
               draws within 1e-2; the card against the CPU at the dry-run
               shape (RN18, 64 -> 32, accum 2, f32): loss and BatchNorm
               running statistics within 1e-3
-  8. kernels  one line listing every ported kernel
+  8. trainer  first the host's JPEG codecs (cv2, PIL, the native loader,
+              libjpeg), then the pretraining CLI (peclr_tpu_torch.cli.train)
+              at the recipe (RN50, 128 x 16, LARS, bf16, 224 -> 128) for two
+              epochs of one step over the committed FreiHAND-layout fixture
+              (tests/fixtures/torch_freihand_like), and a named restore of
+              epoch 0 that replays epoch 1; per epoch the losses, img/s, ms,
+              the wait on the prefetcher, peak memory and kernel launches
+              (kernel 1: 2 x 16 a step + 2 a validation batch, the others
+              none); the decode path of each batch; top-k checkpoints, their
+              bytes and save/restore ms; the replay's state as its fit
+              starts equal to the bit to epoch 0's checkpoint (model,
+              optimizer moments and count, step), its epoch-1 loss within
+              1e-2.  A host with no JPEG decoder fails the phase
+  9. kernels  one line listing every ported kernel
 Then the card's nvidia-smi line, and last the contract line
-{"ok": true, "device": {...}}.  No weights or data files are read: weights
-and frames are made from a seed.
+{"ok": true, "device": {...}}.  No weights are read (they are made from a
+seed); the only data read is the trainer's fixture.
 """
 
 from __future__ import annotations
 
 import contextlib
 import copy
+import importlib
 import itertools
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -73,6 +90,16 @@ BF16_TC_FLOPS = 989e12  # H100 SXM dense bf16 on the tensor cores
 MICROBATCH, ACCUM = 128, 16  # the pretrain recipe
 PRETRAIN_ROUTES = ("grouped", "matmul", "nhwc")
 PRETRAIN_STEPS = {"grouped": 3, "matmul": 3, "nhwc": 1}  # timed, after 1 warm-up
+#: first-step losses of the pretrain phase as PERF.md records them: the
+#: routes from one seeded state with the same draws
+FIRST_STEP_LOSS = {"grouped": 5.561449, "nhwc": 5.561449, "matmul": 5.561674}
+TRAINER_FIXTURE = os.path.join("tests", "fixtures", "torch_freihand_like",
+                               "freihand_dataset")
+TRAINER_ARGV = ["--rotate", "--crop", "--color_jitter", "--resize",
+                "-sources", "freihand", "-batch_size", str(MICROBATCH),
+                "-accumulate_grad_batches", str(ACCUM), "-resnet_size", "50",
+                "-optimizer", "LARS", "-train_ratio", "0.75",
+                "-num_workers", "8", "-save_top_k", "2", "-epochs", "2"]
 CARD = ""
 
 
@@ -791,6 +818,9 @@ def phase_pretrain(torch, dev):
     for route in PRETRAIN_ROUTES:
         rel = abs(first_loss[route] / first_loss["grouped"] - 1.0)
         check(rel <= 1e-2, f"first-step loss {route} vs grouped: rel {rel}")
+        drift = abs(first_loss[route] - FIRST_STEP_LOSS[route])
+        check(drift <= 1e-5, f"first-step loss {route} {first_loss[route]} "
+              f"moved from {FIRST_STEP_LOSS[route]}")
 
     # the main path: each route's counts set to 0 just before its run and
     # read just after; the routes take turns
@@ -884,6 +914,264 @@ def phase_pretrain_vs_cpu(torch, dev):
                          "loss_rel": rel, "bn_stats_worst_rel": worst}
     emit("pretrain_vs_cpu", model="PeCLR RN18, 64 -> 32, accum 2, f32, "
          "TF32 off", routes=result)
+
+
+# --------------------------------------------------------------------------
+# phase 8: the pretraining trainer through its CLI
+
+
+def host_codecs() -> dict:
+    """What this host can decode JPEG with, in the pipeline's order (the
+    native loader, cv2, PIL), and the libraries the native loader needs."""
+    from peclr_tpu_torch.data import native_loader
+
+    probe = {}
+    for name in ("cv2", "PIL", "sklearn", "matplotlib"):
+        try:
+            probe[name] = getattr(importlib.import_module(name), "__version__",
+                                  "present")
+        except ImportError:
+            probe[name] = None
+    probe["native_loader"] = native_loader.available()
+    probe["native_loader_error"] = native_loader.load_error
+    ldconfig = subprocess.run(["ldconfig", "-p"], capture_output=True,
+                              text=True).stdout
+    probe["ldconfig_jpeg"] = [line.strip() for line in ldconfig.splitlines()
+                              if "jpeg" in line]
+    probe["jpeglib_h"] = os.path.exists("/usr/include/jpeglib.h")
+    probe["decoder"] = next((d for d, ok in (
+        ("native", probe["native_loader"]), ("cv2", probe["cv2"]),
+        ("PIL", probe["PIL"])) if ok), None)
+    return probe
+
+
+@contextlib.contextmanager
+def launches_at_validation(snapshots: list):
+    """Record kernel_counts() each time the trainer logs a validation loss,
+    the end of each epoch's work on the card."""
+    from peclr_tpu_torch.utils.logging import ExperimentLogger
+
+    real = ExperimentLogger.log_metrics
+
+    def log_metrics(self, metrics, step=None, epoch=None, context="train"):
+        if context == "val":
+            snapshots.append(kernel_counts())
+        return real(self, metrics, step=step, epoch=epoch, context=context)
+
+    ExperimentLogger.log_metrics = log_metrics
+    try:
+        yield
+    finally:
+        ExperimentLogger.log_metrics = real
+
+
+@contextlib.contextmanager
+def state_at_fit(starts: list):
+    """Record a CPU copy of the trainer's state (model and optimizer
+    state_dicts, step) each time fit begins: what its constructor restored."""
+    from peclr_tpu_torch.train.loop import PeCLRTrainer
+
+    real = PeCLRTrainer.fit
+
+    def fit(self, epochs=None):
+        starts.append(cpu_copy({"model": self.state.model.state_dict(),
+                                "optimizer": self.state.optimizer.state_dict(),
+                                "step": self.state.step}))
+        return real(self, epochs)
+
+    PeCLRTrainer.fit = fit
+    try:
+        yield
+    finally:
+        PeCLRTrainer.fit = real
+
+
+def cpu_copy(tree):
+    """A nest of dicts and lists with each tensor copied to the CPU."""
+    if isinstance(tree, dict):
+        return {k: cpu_copy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(cpu_copy(v) for v in tree)
+    if hasattr(tree, "detach"):
+        return tree.detach().to("cpu", copy=True)
+    return copy.deepcopy(tree)
+
+
+def iter_tensors(tree):
+    """The tensors of a nest of dicts and lists."""
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from iter_tensors(v)
+    elif hasattr(tree, "detach"):
+        yield tree
+
+
+def tree_mismatches(a, b, path: str = "") -> list:
+    """The paths at which two nests of dicts, lists and tensors differ;
+    tensors are compared to the bit, with their dtypes."""
+    if isinstance(a, dict):
+        if not isinstance(b, dict) or set(a) != set(b):
+            return [f"{path}: keys"]
+        return [m for k in a for m in tree_mismatches(a[k], b[k], f"{path}/{k}")]
+    if isinstance(a, (list, tuple)):
+        if not isinstance(b, (list, tuple)) or len(a) != len(b):
+            return [f"{path}: length"]
+        return [m for i, (x, y) in enumerate(zip(a, b))
+                for m in tree_mismatches(x, y, f"{path}/{i}")]
+    if hasattr(a, "detach"):
+        import torch
+
+        same = (torch.is_tensor(b) and a.dtype == b.dtype
+                and a.shape == b.shape and torch.equal(a.cpu(), b.cpu()))
+        return [] if same else [path]
+    return [] if a == b else [path]
+
+
+def run_trainer(torch, argv, dev):
+    """One run of the trainer as a user starts it, through the CLI.  Returns
+    (trainer, per-epoch launch snapshots, seconds)."""
+    from peclr_tpu_torch.cli import train as cli
+
+    snapshots = []
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with launches_at_validation(snapshots):
+        trainer = cli.main(argv + ["--device", str(dev)])
+    torch.cuda.synchronize()
+    return trainer, snapshots, time.perf_counter() - t0
+
+
+def trainer_epochs(trainer):
+    """The trainer's logged records, by (context, epoch)."""
+    with open(os.path.join(trainer.tracker.dir, "metrics.jsonl")) as f:
+        return {(r["context"], r["epoch"]): r for r in map(json.loads, f)}
+
+
+def phase_trainer(torch, dev):
+    """The pretraining CLI at the recipe on the card, then a named restore
+    that replays epoch 1 (module docstring, phase 8)."""
+    from peclr_tpu_torch import constants
+    from peclr_tpu_torch.train.checkpoint import CheckpointManager
+
+    probe = host_codecs()
+    emit("trainer_host", **probe)
+    check(probe["decoder"] is not None,
+          "trainer: no JPEG decoder on this host (native loader: "
+          f"{probe['native_loader_error']}; cv2, PIL: none; libjpeg: "
+          f"{probe['ldconfig_jpeg']})")
+    root = tempfile.mkdtemp(prefix="peclr_trainer_")
+    constants.FREIHAND_DATA = os.path.abspath(TRAINER_FIXTURE)
+    constants.SAVED_MODELS_BASE_PATH = os.path.join(root, "models")
+    constants.SAVED_META_INFO_PATH = os.path.join(root, "meta")
+    try:
+        torch.cuda.empty_cache()
+        trainer, snaps, seconds = run_trainer(torch, TRAINER_ARGV, dev)
+        counts = kernel_counts()
+        key = trainer.tracker.experiment_key
+        records = trainer_epochs(trainer)
+        images = MICROBATCH * ACCUM
+        # a step's 2 x accum, a validation batch's 2, and the pair figure's 2
+        # where the host can plot it
+        figure = 2 if trainer.log_images else 0
+        per_epoch = 2 * ACCUM + 2 + figure
+        epochs = []
+        for epoch in range(2):
+            rec, val = records[("train", epoch)], records[("val", epoch)]
+            check(rec["steps"] == 1, f"trainer epoch {epoch}: {rec['steps']} "
+                  "steps, want 1")
+            check(math.isfinite(rec["loss"]) and math.isfinite(val["loss"]),
+                  f"trainer epoch {epoch}: loss not finite")
+            before = snaps[epoch - 1] if epoch else {k: 0 for k in counts}
+            launched = {k: snaps[epoch][k] - before[k] for k in counts}
+            for kname, n in launched.items():
+                want = per_epoch if kname == "shift_lerp_grouped" else 0
+                check(n == want, f"trainer epoch {epoch}: {kname} launched "
+                      f"{n} times, want {want}")
+            busy_s = rec["epoch_time_s"] - rec["data_wait_s"]
+            epochs.append({
+                "epoch": epoch, "loss": rec["loss"], "val_loss": val["loss"],
+                "lr": rec["lr"], "img_per_s": images / rec["epoch_time_s"],
+                "epoch_ms": rec["epoch_time_s"] * 1e3,
+                "prefetch_wait_ms": rec["data_wait_s"] * 1e3,
+                "step_ms": busy_s * 1e3,
+                "host_batch_img_per_s": images / max(rec["data_wait_s"], 1e-9),
+                "peak_mem_bytes": rec.get("peak_mem_bytes"), "launches": launched,
+            })
+        check(counts == snaps[-1], "trainer: kernels launched after the "
+              "last validation")
+        check(all(p.is_cuda for p in trainer.model.parameters()),
+              "trainer: parameters not on the card")
+        check(not torch.backends.cudnn.allow_tf32, "trainer: cuDNN TF32 on")
+        kept = [d for d in os.listdir(trainer.ckpt.directory)
+                if d.startswith("epoch_")]
+        check(len(kept) <= 2, f"trainer: {len(kept)} checkpoints kept, top-k 2")
+        check(os.path.exists(os.path.join(trainer.ckpt.directory,
+                                          "index.json")), "trainer: no index")
+        ckpt_bytes = os.path.getsize(trainer.ckpt.path(max(
+            int(d.split("_")[1]) for d in kept)))
+        epoch0 = torch.load(trainer.ckpt.path(0), map_location="cpu",
+                            weights_only=True)
+
+        # save and restore the trained state once more, timed
+        timing = CheckpointManager(os.path.join(root, "timing"), save_top_k=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        timing.save(0, trainer.state, {"checkpoint_saving_loss": 0.0})
+        save_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        timing.restore(trainer.state, epoch=0)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        decode = {"train": dict(trainer.pipeline.decode_paths),
+                  "val": dict(trainer.val_pipeline.decode_paths)}
+        del trainer, timing
+        torch.cuda.empty_cache()
+
+        # the named restore: epoch 0's checkpoint, replaying epoch 1; what
+        # the constructor restored must be that checkpoint to the bit (the
+        # replayed loss alone cannot tell: epoch 0's one update has lr 0)
+        starts = []
+        with state_at_fit(starts):
+            replay, _, replay_s = run_trainer(
+                torch, TRAINER_ARGV + ["-experiment_key", key, "-checkpoint",
+                                       "epoch_0"], dev)
+        check(replay.start_epoch == 1, "replay: did not start at epoch 1")
+        restored = starts[0]
+        check(restored["step"] == 1 and restored["optimizer"]["count"] == 1,
+              f"replay: restored step {restored['step']}, optimizer count "
+              f"{restored['optimizer']['count']}, want 1 and 1")
+        differ = tree_mismatches(epoch0, restored)
+        check(not differ, f"replay: restored state differs from epoch 0's "
+              f"checkpoint at {differ[:5]} ({len(differ)} in all)")
+        restored_tensors = sum(1 for _ in iter_tensors(restored))
+        del epoch0, starts, restored
+        replayed = trainer_epochs(replay)[("train", 1)]
+        rel = abs(replayed["loss"] / records[("train", 1)]["loss"] - 1.0)
+        check(rel <= 1e-2, f"replayed epoch-1 loss rel {rel} > 1e-2")
+        replay_launched = kernel_counts()
+        check(replay_launched["shift_lerp_grouped"] == per_epoch
+              and sum(replay_launched.values()) == per_epoch,
+              f"replay launches {replay_launched}")
+        emit("trainer", data="FreiHAND-layout fixture " + TRAINER_FIXTURE,
+             decoder=probe["decoder"], pair_figure=bool(figure),
+             argv=TRAINER_ARGV, model="PeCLR RN50 + projection head, LARS, "
+             "bf16 autocast", images_per_step=images, seconds=seconds,
+             epochs=epochs, decode_paths=decode, checkpoint_bytes=ckpt_bytes,
+             checkpoint_save_ms=save_ms, checkpoint_restore_ms=restore_ms,
+             checkpoints_kept=sorted(kept), replay_seconds=replay_s,
+             restored_equal_to_checkpoint=True,
+             restored_tensors=restored_tensors,
+             replayed_epoch1_loss=replayed["loss"], replay_rel=rel,
+             replay_tolerance=1e-2, replay_launches=replay_launched,
+             replay_decode_paths=dict(replay.pipeline.decode_paths))
+        del replay
+        torch.cuda.empty_cache()
+        return epochs
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 # --------------------------------------------------------------------------
@@ -1139,7 +1427,10 @@ def main() -> int:
     pretrain_runs = phase_pretrain(torch, dev)
     phase_pretrain_vs_cpu(torch, dev)
 
-    # ---- 8. kernels line ---------------------------------------------------------
+    # ---- 8. the trainer through its CLI ----------------------------------------------
+    trainer_run = phase_trainer(torch, dev)
+
+    # ---- 9. kernels line ---------------------------------------------------------
     def summary(name, source, replaces, launches, rows, timed_case, **extra):
         timed = next(r for r in rows if r["case"] == timed_case)
         return {
@@ -1163,6 +1454,9 @@ def main() -> int:
                 [r for r in kernel_rows if r["lerp"]], "pass2_bf16_to_bf16",
                 launches_per_pretrain_step=pretrain_runs["grouped"][0][
                     "launches"]["shift_lerp_grouped"],
+                launches_per_trainer_epoch=[
+                    e["launches"]["shift_lerp_grouped"]
+                    for e in trainer_run],
                 path=kernel_of["pass2_bf16_to_bf16"]["path"],
                 pretrain_ms={r["case"]: r["ms"] for r in kernel_rows
                              if r["case"].startswith("pretrain_")},

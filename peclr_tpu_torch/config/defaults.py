@@ -1,14 +1,16 @@
 """Default configuration values (port of peclr_tpu/config/defaults.py).
 
-The augmentation tier of the reference's JSON configs as plain
-dataclasses; the model/optimizer tier's values that the pretrain recipe
-uses are the defaults of train/recipe.py and train/optimizer.py.
+The reference's two JSON config tiers as plain dataclasses: data and
+augmentation (`TrainConfig`, `AugmentationFlags`, `AugmentationParams`)
+and model and optimizer (`ModelConfig`), with the same fields and
+defaults.  CLI overrides merge on top (cli/train.py:configs_from_args);
+derived quantities (steps per epoch) are computed by the training loop.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 
 @dataclasses.dataclass
@@ -47,6 +49,49 @@ class AugmentationParams:
     #: resample taps for the warp: "area" matches the reference's
     #: cv2.INTER_AREA resize on downscale; "linear" is plain bilinear
     interpolation: str = "area"
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    batch_size: int = 128
+    accumulate_grad_batches: int = 1
+    epochs: int = 50
+    train_ratio: float = 0.9999999999
+    num_workers: int = 8
+    seed: int = 5
+    precision: str = "bf16"  # bf16 autocast on the card (train/step.py)
+    use_palm: bool = False
+    sources: Tuple[str, ...] = ("freihand",)
+    augmentation_flags: AugmentationFlags = dataclasses.field(
+        default_factory=AugmentationFlags
+    )
+    augmentation_params: AugmentationParams = dataclasses.field(
+        default_factory=AugmentationParams
+    )
+
+
+@dataclasses.dataclass
+class ModelConfig:
+    """The model/optimizer tier (the reference's hybrid2_config.json)."""
+
+    batch_size: int = 128
+    lr: float = 1e-4
+    opt_weight_decay: float = 1e-6
+    output_dim: int = 128
+    projection_head_hidden_dim: int = 512
+    projection_head_input_dim: int = 2048
+    warmup_epochs: int = 10
+    num_of_mini_batch: int = 1  # grad-accumulation factor
+    augmentation: Tuple[str, ...] = ()
+    optimizer: str = "LARS"
+    resnet_size: str = "50"
+    lr_max_epochs: Optional[int] = None
+    #: "hybrid2" = PeCLR (equivariant inverse transforms); "simclr" =
+    #: invariant baseline (no transforms in projection space)
+    experiment_type: str = "hybrid2"
+    # derived at runtime:
+    num_samples: int = 0
+    epochs: int = 50
 
 
 def peclr_pretrain_flags() -> AugmentationFlags:

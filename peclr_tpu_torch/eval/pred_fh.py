@@ -16,8 +16,6 @@ from __future__ import annotations
 
 import json
 import os
-import queue
-import threading
 import zipfile
 from collections import deque
 from typing import Callable, Dict, Iterable, Iterator, Optional
@@ -25,6 +23,7 @@ from typing import Callable, Dict, Iterable, Iterator, Optional
 import numpy as np
 import torch
 
+from peclr_tpu_torch.data.pipeline import host_prefetch as _host_prefetch
 from peclr_tpu_torch.device import DeviceLike, resolve_device
 from peclr_tpu_torch.geometry import affine
 from peclr_tpu_torch.geometry.camera import move_palm_to_wrist
@@ -38,60 +37,6 @@ TARGET_DIST = 0.7
 #: cv2 borderValue quirk: the reference passes the ImageNet mean in [0,1]
 #: units to a uint8 warp, so the border is effectively ~0.485/255
 BORDER_FILL = 0.485
-
-
-class _ProducerError:
-    def __init__(self, exc: BaseException):
-        self.exc = exc
-
-
-def _host_prefetch(gen: Iterable, buffer_size: int = 2) -> Iterator:
-    """Run a host-side generator in a producer thread (bounded queue) so its
-    work, JPEG decode here, overlaps the card's work.
-
-    An exception in the producer re-raises in the consumer.  When the
-    consumer stops early (break, exception, close), the producer is told to
-    stop, its source is closed, and the thread is joined."""
-    q: "queue.Queue" = queue.Queue(maxsize=buffer_size)
-    stop = threading.Event()
-    done = object()
-
-    def put(item) -> bool:
-        while not stop.is_set():
-            try:
-                q.put(item, timeout=0.05)
-                return True
-            except queue.Full:
-                continue
-        return False
-
-    def producer():
-        try:
-            for item in gen:
-                if not put(item):
-                    return
-            put(done)
-        except BaseException as e:  # surface decode errors to the consumer
-            put(_ProducerError(e))
-        finally:
-            close = getattr(gen, "close", None)
-            if close is not None:
-                close()
-
-    thread = threading.Thread(target=producer, name="peclr-host-prefetch",
-                              daemon=True)
-    thread.start()
-    try:
-        while True:
-            item = q.get()
-            if item is done:
-                return
-            if isinstance(item, _ProducerError):
-                raise item.exc
-            yield item
-    finally:
-        stop.set()
-        thread.join()
 
 
 def initial_affine(crop_size: int = CROP_SIZE) -> np.ndarray:

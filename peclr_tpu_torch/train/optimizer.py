@@ -1,15 +1,18 @@
-"""Optimizer of the pretrain recipe (port of peclr_tpu/train/optimizer.py,
-its optimizer="LARS" chain): LARS-wrapped Adam with sqrt-batch lr scaling
-and a linear-warmup cosine schedule counted in optimizer steps.
+"""Optimizers of the pretrain recipe (port of peclr_tpu/train/optimizer.py):
+LARS-wrapped Adam (optimizer="LARS") or Adam with masked weight decay
+(optimizer="adam"), sqrt-batch lr scaling, and a schedule counted in
+optimizer steps.
 
-The arithmetic is that of the reference's optax chain:
+The arithmetic is that of the reference's optax chains:
   * lr = base_lr * sqrt(batch_size * accum);
-  * the schedule is optax.warmup_cosine_decay_schedule from 0: linear to the
-    peak over the warmup steps, then cosine to end_lr, where decay_steps
-    counts the warmup too;
-  * LARS, per parameter tensor: lamb = eta * ||p|| / (||g|| + wd * ||p|| +
-    eps), clipped against the schedule's current lr (min(lamb / lr, 1)), 1
-    where either norm is 0; the update (g + wd * p) * lamb goes on to Adam;
+  * "LARS": optax.warmup_cosine_decay_schedule from 0: linear to the peak
+    over the warmup steps, then cosine to end_lr, where decay_steps counts
+    the warmup too; per parameter tensor, LARS: lamb = eta * ||p|| / (||g||
+    + wd * ||p|| + eps), clipped against the schedule's current lr
+    (min(lamb / lr, 1)), 1 where either norm is 0; the update (g + wd * p)
+    * lamb goes on to Adam;
+  * "adam": optax.cosine_decay_schedule from the peak to 0; the decayed
+    weights are added under the no-decay mask (g + wd * p) before Adam;
   * Adam as optax.scale_by_adam: b1 0.9, b2 0.999, eps 1e-8, eps_root 0,
     bias correction by count + 1 (in float32, as optax); the step is
     -lr(count) times its output.
@@ -66,8 +69,25 @@ def warmup_cosine(peak_lr: float, warmup_steps: int, total_steps: int,
     return schedule
 
 
+def cosine(peak_lr: float, total_steps: int) -> Schedule:
+    """Cosine peak -> 0 over total_steps, then 0 (optax's
+    cosine_decay_schedule)."""
+    total_steps = max(total_steps, 1)
+
+    def schedule(count: int) -> float:
+        t = min(count, total_steps)
+        return peak_lr * 0.5 * (1.0 + math.cos(math.pi * t / total_steps))
+
+    return schedule
+
+
+OPTIMIZERS = ("LARS", "adam")
+
+
 class PretrainOptimizer(torch.optim.Optimizer):
-    """LARS -> Adam -> -lr(count), one update per `step()`.
+    """[LARS ->] Adam -> -lr(count), one update per `step()`; `lars=False`
+    leaves the decayed gradient g + wd * p to Adam as it is (the "adam"
+    chain).
 
     Two parameter groups: the decayed parameters (weight_decay) and the
     rest (0)."""
@@ -76,7 +96,7 @@ class PretrainOptimizer(torch.optim.Optimizer):
                  weight_decay: float = 1e-6,
                  trust_coefficient: float = 0.001, lars_eps: float = 1e-8,
                  betas: Tuple[float, float] = (0.9, 0.999),
-                 eps: float = 1e-8):
+                 eps: float = 1e-8, lars: bool = True):
         mask = no_decay_mask(model)
         named = dict(model.named_parameters())
         groups = [
@@ -92,6 +112,7 @@ class PretrainOptimizer(torch.optim.Optimizer):
         self.lars_eps = lars_eps
         self.betas = betas
         self.eps = eps
+        self.lars = lars
         self.count = 0  # updates made so far
 
     @torch.no_grad()
@@ -111,13 +132,14 @@ class PretrainOptimizer(torch.optim.Optimizer):
             grads = [p.grad for p in params]
             wd = group["weight_decay"]
             upd = torch._foreach_add(grads, params, alpha=wd)
-            p_norm = torch.stack(torch._foreach_norm(params))
-            g_norm = torch.stack(torch._foreach_norm(grads))
-            lamb = self.trust_coefficient * p_norm / (
-                g_norm + wd * p_norm + self.lars_eps)
-            lamb = torch.clamp_max(lamb / max(lr, 1e-12), 1.0)
-            lamb = torch.where((p_norm > 0) & (g_norm > 0), lamb, 1.0)
-            torch._foreach_mul_(upd, list(lamb.unbind()))
+            if self.lars:
+                p_norm = torch.stack(torch._foreach_norm(params))
+                g_norm = torch.stack(torch._foreach_norm(grads))
+                lamb = self.trust_coefficient * p_norm / (
+                    g_norm + wd * p_norm + self.lars_eps)
+                lamb = torch.clamp_max(lamb / max(lr, 1e-12), 1.0)
+                lamb = torch.where((p_norm > 0) & (g_norm > 0), lamb, 1.0)
+                torch._foreach_mul_(upd, list(lamb.unbind()))
             mus, nus = [], []
             for p in params:
                 state = self.state[p]
@@ -152,14 +174,21 @@ class PretrainOptimizer(torch.optim.Optimizer):
 def build_optimizer(model: nn.Module, base_lr: float, batch_size: int,
                     accum: int, steps_per_epoch: int, epochs: int,
                     warmup_epochs: int = 10, weight_decay: float = 1e-6,
+                    optimizer: str = "LARS",
                     lr_max_epochs: Optional[int] = None
                     ) -> Tuple[PretrainOptimizer, Schedule]:
     """Returns (optimizer, schedule).  steps_per_epoch counts data
     iterations; optimizer-step counts divide by the accumulation factor."""
+    if optimizer not in OPTIMIZERS:
+        raise ValueError(f"optimizer={optimizer!r}, want one of {OPTIMIZERS}")
     peak = scaled_lr(base_lr, batch_size, accum)
     sched_epochs = lr_max_epochs if lr_max_epochs is not None else epochs
     total_opt_steps = sched_epochs * steps_per_epoch // max(accum, 1)
-    warmup_steps = warmup_epochs * steps_per_epoch // max(accum, 1)
-    schedule = warmup_cosine(peak, warmup_steps, total_opt_steps)
-    opt = PretrainOptimizer(model, schedule, weight_decay=weight_decay)
+    if optimizer == "LARS":
+        warmup_steps = warmup_epochs * steps_per_epoch // max(accum, 1)
+        schedule = warmup_cosine(peak, warmup_steps, total_opt_steps)
+    else:
+        schedule = cosine(peak, total_opt_steps)
+    opt = PretrainOptimizer(model, schedule, weight_decay=weight_decay,
+                            lars=optimizer == "LARS")
     return opt, schedule

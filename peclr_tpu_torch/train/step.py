@@ -17,6 +17,9 @@ what the reference's stats_accum="outside" closed form computes.  On the
 card the model runs under bf16 autocast with f32 parameters and the warp in
 bf16 (the reference's precision="bf16"); precision="f32", and the CPU, run
 both in f32.
+
+`make_peclr_eval_step` is the validation step: the same augmentation,
+equivariance and loss on one batch, the model in eval mode, no update.
 """
 
 from __future__ import annotations
@@ -55,6 +58,11 @@ def projection_stats(proj: torch.Tensor, name: str) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _check_precision(precision: str) -> None:
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision={precision!r}, want one of {PRECISIONS}")
+
+
 def make_peclr_train_step(
     model: nn.Module,
     optimizer: PretrainOptimizer,
@@ -65,6 +73,7 @@ def make_peclr_train_step(
     warp_route: str = "grouped",
     precision: str = "bf16",
     augmentations: Optional[Sequence[str]] = None,
+    with_stats: bool = True,
 ):
     """Returns step(state, batch, generator, draws=None) -> (state, metrics).
 
@@ -74,12 +83,13 @@ def make_peclr_train_step(
     them: a list of accum dicts of 2B parameters each (ops/augment.py:draw),
     e.g. those the reference drew.  The step updates state.model and
     state.optimizer in place and advances state.step.  `warp_route` picks
-    the warp's kernels (ops/warp_mxu.py:ROUTES).  metrics: the mean loss and
-    the last microbatch's projection_stats, as the reference reports."""
+    the warp's kernels (ops/warp_mxu.py:ROUTES).  metrics: the mean loss and,
+    with_stats, the last microbatch's projection_stats, as the reference
+    reports (the trainer's hot path runs without them).  Nothing in the
+    step waits on the card: metrics stay device tensors."""
     if augmentations is None:
         augmentations = flags.active()
-    if precision not in PRECISIONS:
-        raise ValueError(f"precision={precision!r}, want one of {PRECISIONS}")
+    _check_precision(precision)
     image_size = tuple(aug_params.resize_shape)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
@@ -119,11 +129,57 @@ def make_peclr_train_step(
             loss = ntxent_loss(z1, z2, temperature)
             (loss / accum).backward()
             loss_sum += loss.detach()
-        proj = proj.detach()
-        stats = {**projection_stats(proj[:mb], "proj1"),
-                 **projection_stats(proj[mb:], "proj2")}
+        stats = {}
+        if with_stats:
+            proj = proj.detach()
+            stats = {**projection_stats(proj[:mb], "proj1"),
+                     **projection_stats(proj[mb:], "proj2")}
         optimizer.step()
         state.step += 1
         return state, {"loss": loss_sum / accum, **stats}
 
     return train_step
+
+
+def make_peclr_eval_step(
+    model: nn.Module,
+    flags: AugmentationFlags,
+    aug_params: AugmentationParams,
+    temperature: float = 0.5,
+    precision: str = "bf16",
+    augmentations: Optional[Sequence[str]] = None,
+):
+    """Returns eval_step(state, batch, generator, draws=None) -> {'loss'}:
+    the train step's augmentation, inverse transforms and NT-Xent on one
+    batch of B canvases, one forward of the model in eval mode under
+    torch.inference_mode, no update.  `draws` (2B parameters) replaces the
+    generator's draws, as in the train step."""
+    if augmentations is None:
+        augmentations = flags.active()
+    _check_precision(precision)
+    image_size = tuple(aug_params.resize_shape)
+
+    @torch.inference_mode()
+    def eval_step(state: TrainState, batch: Dict[str, torch.Tensor],
+                  generator: Optional[torch.Generator],
+                  draws: Optional[Dict[str, torch.Tensor]] = None):
+        if state.model is not model:
+            raise ValueError("the state holds another model than the step "
+                             "was made with")
+        images = batch["image"]
+        b = images.shape[0]
+        device = images.device
+        bf16 = device.type == "cuda" and precision == "bf16"
+        v1, v2 = augment_pair(
+            generator, images, batch["joints25d"], flags, aug_params,
+            draws=draws,
+            compute_dtype=torch.bfloat16 if bf16 else torch.float32)
+        model.eval()
+        with torch.autocast(device.type, dtype=torch.bfloat16, enabled=bf16):
+            proj = model(torch.cat([v1.images, v2.images]))["projection"]
+        z1, z2 = peclr_projections(proj[:b], proj[b:], v1.params, v2.params,
+                                   image_size=image_size,
+                                   augmentations=augmentations)
+        return {"loss": ntxent_loss(z1, z2, temperature)}
+
+    return eval_step

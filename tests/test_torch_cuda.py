@@ -378,3 +378,69 @@ def test_pretrain_step_runs_on_the_card(card, route):
     assert torch.isfinite(metrics["loss"]).item()
     assert state.step == 1
     assert all(p.device.type == "cuda" for p in model.parameters())
+
+
+def test_train_cli_one_epoch_on_the_card(card, tmp_path, monkeypatch):
+    """One epoch of the pretraining CLI at RN18 on the card (FreiHAND-layout
+    data written to a temporary directory, canvas 64 -> 32 views, 8 x 2 a
+    step): finite losses, the model on the card, TF32 off, kernel 1
+    launched twice per microbatch, per validation batch and, where
+    matplotlib is installed, for the epoch's pair figure; a checkpoint."""
+    import json
+    import os
+
+    from peclr_tpu_torch import constants
+    from peclr_tpu_torch.cli import train as cli
+    from peclr_tpu_torch.data.synthetic import generate_freihand_like
+
+    fh = generate_freihand_like(str(tmp_path / "fh"), num_unique=8, seed=7)
+    monkeypatch.setattr(constants, "FREIHAND_DATA", fh)
+    monkeypatch.setattr(constants, "SAVED_MODELS_BASE_PATH",
+                        str(tmp_path / "models"))
+    monkeypatch.setattr(constants, "SAVED_META_INFO_PATH", str(tmp_path / "meta"))
+    before = fused_shift_lerp_grouped.launches
+    trainer = cli.main([
+        "--rotate", "--crop", "--color_jitter", "--resize", "-batch_size", "8",
+        "-accumulate_grad_batches", "2", "-epochs", "1", "-resnet_size", "18",
+        "-train_ratio", "0.75", "-sources", "freihand", "-canvas", "64",
+        "-view_size", "32", "-num_workers", "2"])
+    torch.cuda.synchronize()
+    assert trainer.device.type == "cuda"
+    assert all(p.device.type == "cuda" for p in trainer.model.parameters())
+    assert not torch.backends.cudnn.allow_tf32
+    # 24 samples: 1 step of 2 microbatches; 8 validation samples: 1 batch
+    figure = 2 if trainer.log_images else 0
+    assert fused_shift_lerp_grouped.launches == before + 2 * 2 + 2 + figure
+    with open(os.path.join(trainer.tracker.dir, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    assert [r["context"] for r in records] == ["train", "val"]
+    assert all(np.isfinite(r["loss"]) for r in records)
+    assert sorted(os.listdir(trainer.ckpt.directory)) == ["epoch_0",
+                                                          "index.json"]
+
+
+def test_prefetch_copier_reuses_its_pinned_buffers(card, monkeypatch):
+    """One cuda_copier serves two device_prefetch calls: the batches arrive
+    equal to the host's, and the second call stages them in the pinned
+    buffers that the first one made."""
+    from peclr_tpu_torch.data import pipeline
+
+    rng = np.random.default_rng(0)
+    host = [{"image": rng.integers(0, 256, (4, 8, 8, 3), dtype=np.uint8)}
+            for _ in range(3)]
+    pinned = []
+    real_empty = torch.empty
+
+    def empty(*args, **kwargs):
+        out = real_empty(*args, **kwargs)
+        if kwargs.get("pin_memory"):
+            pinned.append(out)
+        return out
+
+    monkeypatch.setattr(torch, "empty", empty)
+    copier = pipeline.cuda_copier(card)
+    for _ in range(2):
+        got = [b["image"].cpu().numpy() for b in
+               pipeline.device_prefetch(iter(host), card, copier=copier)]
+        assert all(np.array_equal(g, h["image"]) for g, h in zip(got, host))
+    assert len(pinned) == 2  # two slots, pinned once
