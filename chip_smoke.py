@@ -12,12 +12,14 @@ one JSON line that carries the card's name and power limit:
               started together)
   3. kernel   each kernel against its plain PyTorch version: the grouped
               shift at the leaderboard shapes (B = 120) and at the pretrain
-              recipe's, and the flat (NHWC) shift, bit for bit (lerp and raw
-              mode), each on its 16-byte path, and on the scalar path at an
-              unaligned view, odd row bytes and ragged output tails, with
-              the path each case took and its profiler device time; the
-              fused shift+matmul (f32 out within 1e-2, bf16 out within 1.0;
-              zero taps exactly 0) at the pretrain recipe's shapes, an odd
+              recipe's and the fine-tune's (its two calls captured from one
+              supervised sample), and the flat (NHWC) shift, bit for bit
+              (lerp and raw mode), each on its 16-byte path, and on the
+              scalar path at an unaligned view, odd row bytes and ragged
+              output tails, with the path each case took and its profiler
+              device time; the fused shift+matmul (f32 out within 1e-2,
+              bf16 out within 1.0; zero taps exactly 0) at the pretrain
+              recipe's shapes, an odd
               row count, rows clamped at both ends, dense, tent, zero and
               ragged taps, with the mean band width the kernel walks
               (band_taps_mean), and its band pass bit-exact; kernel, plain,
@@ -57,7 +59,27 @@ one JSON line that carries the card's name and power limit:
               starts equal to the bit to epoch 0's checkpoint (model,
               optimizer moments and count, step), its epoch-1 loss within
               1e-2.  A host with no JPEG decoder fails the phase
-  9. kernels  one line listing every ported kernel
+  9. finetune the fine-tune step of RN25DPose (RN18, 64² crops, batch 8,
+              f32) on the card against the CPU from the same weights and
+              draws: loss and every BatchNorm running statistic (the z-root
+              MLP's included) within 1e-3; the fine-tune CLI
+              (peclr_tpu_torch.cli.finetune) at its defaults (RN50, batch
+              128, 224² canvases to 128² crops, adam, f32 model, bf16 warp)
+              from the trainer's epoch-0 checkpoint for two epochs of two
+              steps over the same fixture: the backbone equal to the bit to
+              the pretrained encoder before the first step, per epoch the
+              loss, ms a step, img/s, the wait on the prefetcher, peak
+              memory, kernel 1 launched 2 a step and the others none; where
+              a step's time goes (CUDA events of the sample, forward,
+              backward and update; a profiled step's busy share); the
+              evaluate CLI on the fine-tuned checkpoint (2 batches of 64 of
+              the val split): 9 finite results, 2 launches a batch, img/s;
+              evaluate() with an oracle predictor on the card within the
+              reference's bounds (Mean_EPE_2D < 1e-3, Median_EPE_3D_R_V_3D <
+              5e-3, AUC > 0.9); the port CLI's torchvision export of the
+              trainer's checkpoint loaded strictly into a torchvision-keyed
+              ResNet, its embedding equal to the encoder's within 1e-5
+ 10. kernels  one line listing every ported kernel
 Then the card's nvidia-smi line, and last the contract line
 {"ok": true, "device": {...}}.  No weights are read (they are made from a
 seed); the only data read is the trainer's fixture.
@@ -100,6 +122,15 @@ TRAINER_ARGV = ["--rotate", "--crop", "--color_jitter", "--resize",
                 "-accumulate_grad_batches", str(ACCUM), "-resnet_size", "50",
                 "-optimizer", "LARS", "-train_ratio", "0.75",
                 "-num_workers", "8", "-save_top_k", "2", "-epochs", "2"]
+FINETUNE_BATCH, FINETUNE_STEPS, EVAL_BATCH, EVAL_BATCHES = 128, 2, 64, 2
+#: the fine-tune CLI at its defaults (RN50, batch 128, crop 128, adam, base
+#: lr 1e-4), 2 epochs of 2 steps over the trainer's fixture
+FINETUNE_ARGV = ["-resnet_size", "50", "-batch_size", str(FINETUNE_BATCH),
+                 "-epochs", "2", "-steps_per_epoch", str(FINETUNE_STEPS),
+                 "-train_ratio", "0.75", "-num_workers", "8",
+                 "-save_top_k", "2"]
+EVAL_ARGV = ["-resnet_size", "50", "-batch_size", str(EVAL_BATCH),
+             "-num_batches", str(EVAL_BATCHES), "-train_ratio", "0.75"]
 CARD = ""
 
 
@@ -243,11 +274,47 @@ def grid_sample_shift(rows3, offsets, out, mode):
                                  align_corners=True)
 
 
+def finetune_shift_calls(torch, dev):
+    """The two kernel-1 calls of one fine-tune sample at the CLI's defaults
+    (128 seeded 224² canvases cropped and resized to 128², the warp in
+    bf16), captured as (rows3, k, f, out, out_dtype)."""
+    from peclr_tpu_torch.config.defaults import (
+        AugmentationFlags,
+        AugmentationParams,
+    )
+    from peclr_tpu_torch.data.synthetic import seeded_frames
+    from peclr_tpu_torch.ops import augment, warp_mxu
+    from peclr_tpu_torch.train.recipe import synthetic_pretrain_batch
+
+    flags, params = AugmentationFlags(crop=True, resize=True), AugmentationParams()
+    frames = torch.from_numpy(seeded_frames(FINETUNE_BATCH, SEED + 10)).to(dev)
+    joints = synthetic_pretrain_batch(FINETUNE_BATCH, 224, SEED + 11,
+                                      device=dev)["joints25d"]
+    draws = augment.draw(torch.Generator(device=dev).manual_seed(SEED + 12),
+                         FINETUNE_BATCH, flags, params)
+    calls = []
+    real = warp_mxu.fused_shift_lerp_grouped
+
+    def capture(rows3, k, f, out_elems, out_dtype=None, lerp=True):
+        calls.append((rows3.clone(), k.clone(), f.clone(), out_elems,
+                      out_dtype))
+        return real(rows3, k, f, out_elems, out_dtype, lerp)
+
+    warp_mxu.fused_shift_lerp_grouped = capture
+    try:
+        augment.apply(frames, joints, draws, flags, params)
+    finally:
+        warp_mxu.fused_shift_lerp_grouped = real
+    check(len(calls) == 2, f"a fine-tune sample made {len(calls)} kernel-1 "
+          "calls, want 2")
+    return calls
+
+
 def phase_kernel(torch, dev):
     """Kernels 1 and 2 (the grouped shift, lerp and raw mode) bit for bit
-    against the plain version.  The leaderboard's and the pretrain recipe's
-    cases must take the 16-byte path; an unaligned view, W = 130 and ragged
-    output tails (out = 100, 129) the scalar one."""
+    against the plain version.  The leaderboard's, the pretrain recipe's and
+    the fine-tune's cases must take the 16-byte path; an unaligned view,
+    W = 130 and ragged output tails (out = 100, 129) the scalar one."""
     from peclr_tpu_torch.ops.shift_lerp import (
         fused_shift_lerp_grouped,
         shift_lerp_grouped_plain,
@@ -284,6 +351,9 @@ def phase_kernel(torch, dev):
     pre_bf = (torch.rand((3, n2, 224), generator=gen, device=dev) * 255).to(
         torch.bfloat16)
     vec, scalar = "vec16", "scalar"
+    # the fine-tune's two calls as its main path makes them: (k, f) given
+    (ft1, k1, f1, out1, dt1), (ft2, k2, f2, out2, dt2) = finetune_shift_calls(
+        torch, dev)
     cases = [
         ("pass1_u8_to_bf16", True, u8, wide, torch.bfloat16, out, vec),
         ("pass1_u8_to_f32", True, u8, wide, torch.float32, out, vec),
@@ -295,6 +365,8 @@ def phase_kernel(torch, dev):
          offsets(n1, -424.0, 264.0), torch.bfloat16, 384, vec),
         ("pretrain_pass2_bf16_to_bf16", True, pre_bf,
          offsets(n2, -296.0, 264.0), torch.bfloat16, 256, vec),
+        ("finetune_pass1_u8_to_bf16", True, ft1, (k1, f1), dt1, out1, vec),
+        ("finetune_pass2_bf16_to_bf16", True, ft2, (k2, f2), dt2, out2, vec),
         ("unaligned_view_u8_to_bf16", True, unaligned,
          offsets(1001, -800.0, 260.0), torch.bfloat16, out, scalar),
         ("odd_w_130_u8_to_bf16", True, w130, offsets(1001, -800.0, 170.0),
@@ -312,9 +384,13 @@ def phase_kernel(torch, dev):
          None, 129, scalar),
     ]
     for name, lerp, rows3, off, out_dtype, out, want_path in cases:
-        k_true = torch.floor(off)
-        k = k_true.clamp(-(out + 2), rows3.shape[2]).to(torch.int32)
-        f = (off - k_true).to(torch.float32)
+        if isinstance(off, tuple):  # a captured call's own k and f
+            k, f = off
+            off = k.float() + f
+        else:
+            k_true = torch.floor(off)
+            k = k_true.clamp(-(out + 2), rows3.shape[2]).to(torch.int32)
+            f = (off - k_true).to(torch.float32)
         fv = f if lerp else None
 
         def kern():
@@ -400,6 +476,9 @@ def phase_flat_kernel(torch, dev):
     clamped = torch.cat([offsets(n1 // 2, -5000.0, -(384 + 3.0)),
                          offsets(n1 - n1 // 2, w_px + 1.0, 5000.0)])
     vec, scalar = "vec16", "scalar"
+    # the fine-tune's two calls as its main path makes them: (k, f) given
+    (ft1, k1, f1, out1, dt1), (ft2, k2, f2, out2, dt2) = finetune_shift_calls(
+        torch, dev)
     cases = [
         ("flat_pass1_u8_to_bf16", u8, 384, offsets(n1, -424.0, 264.0),
          torch.bfloat16, vec),
@@ -1050,9 +1129,11 @@ def trainer_epochs(trainer):
         return {(r["context"], r["epoch"]): r for r in map(json.loads, f)}
 
 
-def phase_trainer(torch, dev):
+def phase_trainer(torch, dev, root):
     """The pretraining CLI at the recipe on the card, then a named restore
-    that replays epoch 1 (module docstring, phase 8)."""
+    that replays epoch 1 (module docstring, phase 8); its outputs go under
+    `root`.  Returns the epochs and the directory of epoch 0's
+    checkpoint."""
     from peclr_tpu_torch import constants
     from peclr_tpu_torch.train.checkpoint import CheckpointManager
 
@@ -1062,116 +1143,461 @@ def phase_trainer(torch, dev):
           "trainer: no JPEG decoder on this host (native loader: "
           f"{probe['native_loader_error']}; cv2, PIL: none; libjpeg: "
           f"{probe['ldconfig_jpeg']})")
-    root = tempfile.mkdtemp(prefix="peclr_trainer_")
     constants.FREIHAND_DATA = os.path.abspath(TRAINER_FIXTURE)
     constants.SAVED_MODELS_BASE_PATH = os.path.join(root, "models")
     constants.SAVED_META_INFO_PATH = os.path.join(root, "meta")
+    torch.cuda.empty_cache()
+    trainer, snaps, seconds = run_trainer(torch, TRAINER_ARGV, dev)
+    counts = kernel_counts()
+    key = trainer.tracker.experiment_key
+    epoch0_dir = os.path.dirname(trainer.ckpt.path(0))
+    records = trainer_epochs(trainer)
+    images = MICROBATCH * ACCUM
+    # a step's 2 x accum, a validation batch's 2, and the pair figure's 2
+    # where the host can plot it
+    figure = 2 if trainer.log_images else 0
+    per_epoch = 2 * ACCUM + 2 + figure
+    epochs = []
+    for epoch in range(2):
+        rec, val = records[("train", epoch)], records[("val", epoch)]
+        check(rec["steps"] == 1, f"trainer epoch {epoch}: {rec['steps']} "
+              "steps, want 1")
+        check(math.isfinite(rec["loss"]) and math.isfinite(val["loss"]),
+              f"trainer epoch {epoch}: loss not finite")
+        before = snaps[epoch - 1] if epoch else {k: 0 for k in counts}
+        launched = {k: snaps[epoch][k] - before[k] for k in counts}
+        for kname, n in launched.items():
+            want = per_epoch if kname == "shift_lerp_grouped" else 0
+            check(n == want, f"trainer epoch {epoch}: {kname} launched "
+                  f"{n} times, want {want}")
+        busy_s = rec["epoch_time_s"] - rec["data_wait_s"]
+        epochs.append({
+            "epoch": epoch, "loss": rec["loss"], "val_loss": val["loss"],
+            "lr": rec["lr"], "img_per_s": images / rec["epoch_time_s"],
+            "epoch_ms": rec["epoch_time_s"] * 1e3,
+            "prefetch_wait_ms": rec["data_wait_s"] * 1e3,
+            "step_ms": busy_s * 1e3,
+            "host_batch_img_per_s": images / max(rec["data_wait_s"], 1e-9),
+            "peak_mem_bytes": rec.get("peak_mem_bytes"), "launches": launched,
+        })
+    check(counts == snaps[-1], "trainer: kernels launched after the "
+          "last validation")
+    check(all(p.is_cuda for p in trainer.model.parameters()),
+          "trainer: parameters not on the card")
+    check(not torch.backends.cudnn.allow_tf32, "trainer: cuDNN TF32 on")
+    kept = [d for d in os.listdir(trainer.ckpt.directory)
+            if d.startswith("epoch_")]
+    check(len(kept) <= 2, f"trainer: {len(kept)} checkpoints kept, top-k 2")
+    check(os.path.exists(os.path.join(trainer.ckpt.directory,
+                                      "index.json")), "trainer: no index")
+    ckpt_bytes = os.path.getsize(trainer.ckpt.path(max(
+        int(d.split("_")[1]) for d in kept)))
+    epoch0 = torch.load(trainer.ckpt.path(0), map_location="cpu",
+                        weights_only=True)
+
+    # save and restore the trained state once more, timed
+    timing = CheckpointManager(os.path.join(root, "timing"), save_top_k=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timing.save(0, trainer.state, {"checkpoint_saving_loss": 0.0})
+    save_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    timing.restore(trainer.state, epoch=0)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    decode = {"train": dict(trainer.pipeline.decode_paths),
+              "val": dict(trainer.val_pipeline.decode_paths)}
+    del trainer, timing
+    torch.cuda.empty_cache()
+
+    # the named restore: epoch 0's checkpoint, replaying epoch 1; what
+    # the constructor restored must be that checkpoint to the bit (the
+    # replayed loss alone cannot tell: epoch 0's one update has lr 0)
+    starts = []
+    with state_at_fit(starts):
+        replay, _, replay_s = run_trainer(
+            torch, TRAINER_ARGV + ["-experiment_key", key, "-checkpoint",
+                                   "epoch_0"], dev)
+    check(replay.start_epoch == 1, "replay: did not start at epoch 1")
+    restored = starts[0]
+    check(restored["step"] == 1 and restored["optimizer"]["count"] == 1,
+          f"replay: restored step {restored['step']}, optimizer count "
+          f"{restored['optimizer']['count']}, want 1 and 1")
+    differ = tree_mismatches(epoch0, restored)
+    check(not differ, f"replay: restored state differs from epoch 0's "
+          f"checkpoint at {differ[:5]} ({len(differ)} in all)")
+    restored_tensors = sum(1 for _ in iter_tensors(restored))
+    del epoch0, starts, restored
+    replayed = trainer_epochs(replay)[("train", 1)]
+    rel = abs(replayed["loss"] / records[("train", 1)]["loss"] - 1.0)
+    check(rel <= 1e-2, f"replayed epoch-1 loss rel {rel} > 1e-2")
+    replay_launched = kernel_counts()
+    check(replay_launched["shift_lerp_grouped"] == per_epoch
+          and sum(replay_launched.values()) == per_epoch,
+          f"replay launches {replay_launched}")
+    emit("trainer", data="FreiHAND-layout fixture " + TRAINER_FIXTURE,
+         decoder=probe["decoder"], pair_figure=bool(figure),
+         argv=TRAINER_ARGV, model="PeCLR RN50 + projection head, LARS, "
+         "bf16 autocast", images_per_step=images, seconds=seconds,
+         epochs=epochs, decode_paths=decode, checkpoint_bytes=ckpt_bytes,
+         checkpoint_save_ms=save_ms, checkpoint_restore_ms=restore_ms,
+         checkpoints_kept=sorted(kept), replay_seconds=replay_s,
+         restored_equal_to_checkpoint=True,
+         restored_tensors=restored_tensors,
+         replayed_epoch1_loss=replayed["loss"], replay_rel=rel,
+         replay_tolerance=1e-2, replay_launches=replay_launched,
+         replay_decode_paths=dict(replay.pipeline.decode_paths))
+    del replay
+    torch.cuda.empty_cache()
+    check(os.path.exists(os.path.join(epoch0_dir, "state.pt")),
+          "trainer: epoch 0's checkpoint is gone after the replay")
+    return epochs, epoch0_dir
+
+
+# --------------------------------------------------------------------------
+# phase 9: supervised fine-tuning and evaluation through their CLIs
+
+
+@contextlib.contextmanager
+def launches_at_checkpoint(snapshots: list):
+    """Record kernel_counts() each time a checkpoint is saved, the end of
+    each fine-tune epoch's work on the card."""
+    from peclr_tpu_torch.train.checkpoint import CheckpointManager
+
+    real = CheckpointManager.save
+
+    def save(self, epoch, state, metrics):
+        snapshots.append(kernel_counts())
+        return real(self, epoch, state, metrics)
+
+    CheckpointManager.save = save
     try:
-        torch.cuda.empty_cache()
-        trainer, snaps, seconds = run_trainer(torch, TRAINER_ARGV, dev)
-        counts = kernel_counts()
-        key = trainer.tracker.experiment_key
-        records = trainer_epochs(trainer)
-        images = MICROBATCH * ACCUM
-        # a step's 2 x accum, a validation batch's 2, and the pair figure's 2
-        # where the host can plot it
-        figure = 2 if trainer.log_images else 0
-        per_epoch = 2 * ACCUM + 2 + figure
-        epochs = []
-        for epoch in range(2):
-            rec, val = records[("train", epoch)], records[("val", epoch)]
-            check(rec["steps"] == 1, f"trainer epoch {epoch}: {rec['steps']} "
-                  "steps, want 1")
-            check(math.isfinite(rec["loss"]) and math.isfinite(val["loss"]),
-                  f"trainer epoch {epoch}: loss not finite")
-            before = snaps[epoch - 1] if epoch else {k: 0 for k in counts}
-            launched = {k: snaps[epoch][k] - before[k] for k in counts}
-            for kname, n in launched.items():
-                want = per_epoch if kname == "shift_lerp_grouped" else 0
-                check(n == want, f"trainer epoch {epoch}: {kname} launched "
-                      f"{n} times, want {want}")
-            busy_s = rec["epoch_time_s"] - rec["data_wait_s"]
-            epochs.append({
-                "epoch": epoch, "loss": rec["loss"], "val_loss": val["loss"],
-                "lr": rec["lr"], "img_per_s": images / rec["epoch_time_s"],
-                "epoch_ms": rec["epoch_time_s"] * 1e3,
-                "prefetch_wait_ms": rec["data_wait_s"] * 1e3,
-                "step_ms": busy_s * 1e3,
-                "host_batch_img_per_s": images / max(rec["data_wait_s"], 1e-9),
-                "peak_mem_bytes": rec.get("peak_mem_bytes"), "launches": launched,
-            })
-        check(counts == snaps[-1], "trainer: kernels launched after the "
-              "last validation")
-        check(all(p.is_cuda for p in trainer.model.parameters()),
-              "trainer: parameters not on the card")
-        check(not torch.backends.cudnn.allow_tf32, "trainer: cuDNN TF32 on")
-        kept = [d for d in os.listdir(trainer.ckpt.directory)
-                if d.startswith("epoch_")]
-        check(len(kept) <= 2, f"trainer: {len(kept)} checkpoints kept, top-k 2")
-        check(os.path.exists(os.path.join(trainer.ckpt.directory,
-                                          "index.json")), "trainer: no index")
-        ckpt_bytes = os.path.getsize(trainer.ckpt.path(max(
-            int(d.split("_")[1]) for d in kept)))
-        epoch0 = torch.load(trainer.ckpt.path(0), map_location="cpu",
-                            weights_only=True)
-
-        # save and restore the trained state once more, timed
-        timing = CheckpointManager(os.path.join(root, "timing"), save_top_k=1)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        timing.save(0, trainer.state, {"checkpoint_saving_loss": 0.0})
-        save_ms = (time.perf_counter() - t0) * 1e3
-        t0 = time.perf_counter()
-        timing.restore(trainer.state, epoch=0)
-        torch.cuda.synchronize()
-        restore_ms = (time.perf_counter() - t0) * 1e3
-        decode = {"train": dict(trainer.pipeline.decode_paths),
-                  "val": dict(trainer.val_pipeline.decode_paths)}
-        del trainer, timing
-        torch.cuda.empty_cache()
-
-        # the named restore: epoch 0's checkpoint, replaying epoch 1; what
-        # the constructor restored must be that checkpoint to the bit (the
-        # replayed loss alone cannot tell: epoch 0's one update has lr 0)
-        starts = []
-        with state_at_fit(starts):
-            replay, _, replay_s = run_trainer(
-                torch, TRAINER_ARGV + ["-experiment_key", key, "-checkpoint",
-                                       "epoch_0"], dev)
-        check(replay.start_epoch == 1, "replay: did not start at epoch 1")
-        restored = starts[0]
-        check(restored["step"] == 1 and restored["optimizer"]["count"] == 1,
-              f"replay: restored step {restored['step']}, optimizer count "
-              f"{restored['optimizer']['count']}, want 1 and 1")
-        differ = tree_mismatches(epoch0, restored)
-        check(not differ, f"replay: restored state differs from epoch 0's "
-              f"checkpoint at {differ[:5]} ({len(differ)} in all)")
-        restored_tensors = sum(1 for _ in iter_tensors(restored))
-        del epoch0, starts, restored
-        replayed = trainer_epochs(replay)[("train", 1)]
-        rel = abs(replayed["loss"] / records[("train", 1)]["loss"] - 1.0)
-        check(rel <= 1e-2, f"replayed epoch-1 loss rel {rel} > 1e-2")
-        replay_launched = kernel_counts()
-        check(replay_launched["shift_lerp_grouped"] == per_epoch
-              and sum(replay_launched.values()) == per_epoch,
-              f"replay launches {replay_launched}")
-        emit("trainer", data="FreiHAND-layout fixture " + TRAINER_FIXTURE,
-             decoder=probe["decoder"], pair_figure=bool(figure),
-             argv=TRAINER_ARGV, model="PeCLR RN50 + projection head, LARS, "
-             "bf16 autocast", images_per_step=images, seconds=seconds,
-             epochs=epochs, decode_paths=decode, checkpoint_bytes=ckpt_bytes,
-             checkpoint_save_ms=save_ms, checkpoint_restore_ms=restore_ms,
-             checkpoints_kept=sorted(kept), replay_seconds=replay_s,
-             restored_equal_to_checkpoint=True,
-             restored_tensors=restored_tensors,
-             replayed_epoch1_loss=replayed["loss"], replay_rel=rel,
-             replay_tolerance=1e-2, replay_launches=replay_launched,
-             replay_decode_paths=dict(replay.pipeline.decode_paths))
-        del replay
-        torch.cuda.empty_cache()
-        return epochs
+        yield
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        CheckpointManager.save = real
+
+
+@contextlib.contextmanager
+def backbone_at_load(loaded: list):
+    """Record a CPU copy of the backbone each time the fine-tune CLI loads a
+    pretrained encoder into it (before its first step)."""
+    from peclr_tpu_torch.train import finetune
+
+    real = finetune.load_pretrained_encoder
+
+    def load(model, state_dict):
+        out = real(model, state_dict)
+        loaded.append(cpu_copy(model.backend_model.state_dict()))
+        return out
+
+    finetune.load_pretrained_encoder = load
+    try:
+        yield
+    finally:
+        finetune.load_pretrained_encoder = real
+
+
+@contextlib.contextmanager
+def timed_evaluate(seconds: list):
+    """Record the seconds of each evaluate() call (the CLI's inference and
+    metrics, without its model build and load)."""
+    import torch
+
+    from peclr_tpu_torch.eval import evaluate as ev
+
+    real = ev.evaluate
+
+    def evaluate(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*args, **kwargs)
+        seconds.append(time.perf_counter() - t0)
+        return out
+
+    ev.evaluate = evaluate
+    try:
+        yield
+    finally:
+        ev.evaluate = real
+
+
+def fixture_pipeline(split: str, batch: int):
+    from peclr_tpu_torch.data.freihand import FreihandSource
+    from peclr_tpu_torch.data.pipeline import HostPipeline
+
+    src = FreihandSource(os.path.abspath(TRAINER_FIXTURE), split,
+                         train_ratio=0.75)
+    return HostPipeline([src], batch_size=batch, canvas=224, shuffle=False)
+
+
+def finetune_vs_cpu(torch, dev):
+    """One fine-tune step of RN25DPose at RN18 (8 fixture canvases to 64²
+    crops, crop + rotate, the lifted-3D loss at 0.1, f32 model and warp)
+    on the CPU and on the card from the same seeded weights and draws: loss
+    within 1e-3 relative, every BatchNorm running statistic (the z-root
+    MLP's included) within 1e-3 of its tensor's scale."""
+    from peclr_tpu_torch.config.defaults import (
+        AugmentationFlags,
+        AugmentationParams,
+    )
+    from peclr_tpu_torch.data.synthetic import seeded_rn25d_variables
+    from peclr_tpu_torch.models import RN25DPose
+    from peclr_tpu_torch.models.port import rn25d_variables_to_state_dict
+    from peclr_tpu_torch.ops import augment
+    from peclr_tpu_torch.train.finetune import make_finetune_step
+    from peclr_tpu_torch.train.optimizer import build_optimizer
+    from peclr_tpu_torch.train.state import TrainState
+
+    flags = AugmentationFlags(crop=True, rotate=True, resize=True)
+    params = AugmentationParams(resize_shape=(64, 64))
+    batch = next(fixture_pipeline("train", 8).batches(1))
+    draws = augment.draw(torch.Generator().manual_seed(SEED + 13), 8, flags,
+                         params)
+    weights = rn25d_variables_to_state_dict(seeded_rn25d_variables("18", SEED),
+                                            "18")
+    losses, stats = {}, {}
+    for where in ("cpu", str(dev)):
+        model = RN25DPose("18")
+        model.load_state_dict(weights, strict=True)
+        model.to(where)
+        opt, _ = build_optimizer(model, base_lr=1e-4, batch_size=8, accum=1,
+                                 steps_per_epoch=2, epochs=2, optimizer="adam")
+        step = make_finetune_step(model, opt, flags, params,
+                                  loss_3d_weight=0.1,
+                                  compute_dtype=torch.float32)
+        _, metrics = step(TrainState(model, opt),
+                          {k: torch.from_numpy(v).to(where)
+                           for k, v in batch.items()}, None, draws=draws)
+        losses[where] = metrics["loss"].item()
+        stats[where] = {k: v.cpu() for k, v in model.state_dict().items()
+                        if "running" in k}
+    rel = abs(losses[str(dev)] / losses["cpu"] - 1.0)
+    check(rel <= 1e-3, f"fine-tune RN18 loss card vs CPU rel {rel} > 1e-3")
+    worst, worst_zroot = 0.0, 0.0
+    for key, ref in stats["cpu"].items():
+        err = (stats[str(dev)][key] - ref).abs().max().item()
+        err /= max(ref.abs().max().item(), 1e-12)
+        worst = max(worst, err)
+        if key.startswith("zroot_ref."):
+            worst_zroot = max(worst_zroot, err)
+    check(worst <= 1e-3, f"fine-tune BN stats card vs CPU {worst} > 1e-3")
+    return {"loss_cpu": losses["cpu"], "loss_card": losses[str(dev)],
+            "loss_rel": rel, "bn_stats_worst_rel": worst,
+            "zroot_bn_stats_worst_rel": worst_zroot, "tolerance": 1e-3}
+
+
+def oracle_evaluate(torch, dev):
+    """evaluate() on the card over the fixture's val split with a predictor
+    that feeds back each batch's own 2.5D labels: the crop geometry and
+    K' = T @ K on the card must score as the reference's oracle test
+    bounds."""
+    from peclr_tpu_torch.config.defaults import (
+        AugmentationFlags,
+        AugmentationParams,
+    )
+    from peclr_tpu_torch.eval import evaluate as ev
+
+    stash = []
+    real = ev.supervised_sample_batch
+
+    def capturing(*args, **kwargs):
+        sample = real(*args, **kwargs)
+        stash.append(sample["joints"])
+        return sample
+
+    ev.supervised_sample_batch = capturing
+    try:
+        results = ev.evaluate(lambda images, K: stash.pop(),
+                              fixture_pipeline("val", 8),
+                              AugmentationFlags(crop=True, resize=True),
+                              AugmentationParams(), num_batches=2, device=dev)
+    finally:
+        ev.supervised_sample_batch = real
+    bounds = {"Mean_EPE_2D": ("<", 1e-3), "Median_EPE_3D_R_V_3D": ("<", 5e-3),
+              "AUC": (">", 0.9)}
+    for key, (op, bound) in bounds.items():
+        ok = results[key] < bound if op == "<" else results[key] > bound
+        check(ok, f"oracle evaluate {key} {results[key]} not {op} {bound}")
+    return {"results": results, "bounds": {k: f"{op} {b}" for k, (op, b)
+                                           in bounds.items()}}
+
+
+def port_to_torchvision(torch, dev, pretrained, root):
+    """The port CLI: the trainer's checkpoint to the reference's PeCLR
+    layout, that to torchvision's keys; the result loads strictly into a
+    torchvision-keyed ResNet (fc left out), whose embedding on the card
+    equals the PeCLR encoder's."""
+    from peclr_tpu_torch.cli import port as port_cli
+    from peclr_tpu_torch.models import PeCLRModel
+    from peclr_tpu_torch.models.resnet import ResNet
+    from peclr_tpu_torch.train.checkpoint import (
+        load_torch_checkpoint,
+        model_state_dict,
+    )
+
+    peclr_npz = os.path.join(root, "peclr_rn50.npz")
+    tv_npz = os.path.join(root, "torchvision_rn50.npz")
+    with contextlib.redirect_stdout(sys.stderr):
+        port_cli.main([pretrained, peclr_npz, "-format", "orbax_to_peclr"])
+        port_cli.main([peclr_npz, tv_npz, "-format", "peclr_to_torchvision"])
+    net = ResNet("50")
+    net.fc = torch.nn.Identity()
+    net.load_state_dict(load_torch_checkpoint(tv_npz), strict=True)
+    peclr = PeCLRModel("50")
+    peclr.load_state_dict(model_state_dict(pretrained), strict=True)
+    x = torch.from_numpy(np.random.default_rng(SEED + 14).uniform(
+        -2, 2, (4, 3, 128, 128)).astype(np.float32)).to(dev)
+    with torch.inference_mode():
+        got = net.to(dev).eval()(x)
+        want = peclr.to(dev).eval().encoder(x)
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    check(rel <= 1e-5, f"torchvision export embedding vs encoder rel {rel}")
+    return {"tensors": len(load_torch_checkpoint(tv_npz)), "strict": True,
+            "embedding_rel": rel, "tolerance": 1e-5}
+
+
+def finetune_breakdown(torch, state, dev):
+    """Where a fine-tune step's time goes, at the CLI's defaults on one
+    batch of the fixture: CUDA-event ms of the supervised sample (the warp),
+    the forward with the losses, the backward and the update, over 3 steps
+    after a warm-up; then one step under the profiler (the device's busy
+    share, the top kernels)."""
+    from peclr_tpu_torch.config.defaults import (
+        AugmentationFlags,
+        AugmentationParams,
+    )
+    from peclr_tpu_torch.eval.evaluate import supervised_sample_batch
+    from peclr_tpu_torch.losses.supervised import l1_loss_25d
+    from peclr_tpu_torch.train.finetune import make_finetune_step
+
+    model, opt = state.model, state.optimizer
+    flags, params = AugmentationFlags(crop=True, resize=True), AugmentationParams()
+    raw = next(fixture_pipeline("train", FINETUNE_BATCH).batches(1))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in raw.items()}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    names = ("sample", "forward", "backward", "update")
+    runs = []
+    for rep in range(4):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        model.train()
+        opt.zero_grad(set_to_none=True)
+        ev[0].record()
+        sample = supervised_sample_batch(gen, batch, flags, params)
+        ev[1].record()
+        out = model(sample["image"], K=sample["K"])
+        l2d, lz, _ = l1_loss_25d(out["kp25d"], sample["joints"],
+                                 sample["scale"], sample["joints_valid"])
+        ev[2].record()
+        (l2d + lz).backward()
+        ev[3].record()
+        opt.step()
+        ev[4].record()
+        torch.cuda.synchronize()
+        if rep:  # the first is the warm-up
+            runs.append({n: ev[i].elapsed_time(ev[i + 1])
+                         for i, n in enumerate(names)})
+    step = make_finetune_step(model, opt, flags, params)
+    _, profiled = profile_step(torch, step, state, batch, gen)
+    return {"steps_ms": runs, "profiled_step": profiled}
+
+
+def phase_finetune(torch, dev, pretrained, root):
+    """The fine-tune step card against CPU, the fine-tune CLI at its
+    defaults from the trainer's epoch-0 checkpoint, the evaluate CLI on the
+    fine-tuned checkpoint, the oracle evaluate, and the port CLI's
+    torchvision export (module docstring, phase 9)."""
+    from peclr_tpu_torch.cli import evaluate as evaluate_cli
+    from peclr_tpu_torch.cli import finetune as finetune_cli
+    from peclr_tpu_torch.models.port import peclr_to_torchvision
+    from peclr_tpu_torch.train.checkpoint import model_state_dict
+
+    vs_cpu = finetune_vs_cpu(torch, dev)
+
+    # the fine-tune CLI: counts set to 0 just before, read at each epoch end
+    workdir = os.path.join(root, "rn25d")
+    snaps, loaded = [], []
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with launches_at_checkpoint(snaps), backbone_at_load(loaded):
+        state, records = finetune_cli.main(FINETUNE_ARGV + [
+            "-workdir", workdir, "-pretrained", pretrained, "--device",
+            str(dev)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    encoder = peclr_to_torchvision(model_state_dict(pretrained), "50")
+    backbone = {k: v for k, v in loaded[0].items() if not k.startswith("fc.")}
+    differ = tree_mismatches(encoder, backbone)
+    check(len(loaded) == 1 and not differ, "fine-tune: the backbone after "
+          f"loading differs from the pretrained encoder at {differ[:5]}")
+    check(all(p.is_cuda for p in state.model.parameters()),
+          "fine-tune: parameters not on the card")
+    epochs = []
+    for epoch, rec in enumerate(records):
+        before = snaps[epoch - 1] if epoch else {k: 0 for k in snaps[0]}
+        launched = {k: snaps[epoch][k] - before[k] for k in snaps[0]}
+        check(rec["steps"] == FINETUNE_STEPS and math.isfinite(rec["loss"]),
+              f"fine-tune epoch {epoch}: {rec['steps']} steps, loss "
+              f"{rec['loss']}")
+        for kname, n in launched.items():
+            want = 2 * FINETUNE_STEPS if kname == "shift_lerp_grouped" else 0
+            check(n == want, f"fine-tune epoch {epoch}: {kname} launched {n} "
+                  f"times, want {want}")
+        busy_s = rec["epoch_time_s"] - rec["data_wait_s"]
+        epochs.append({
+            "epoch": epoch, "loss": rec["loss"],
+            "img_per_s": rec["images_per_sec"],
+            "epoch_ms": rec["epoch_time_s"] * 1e3,
+            "prefetch_wait_ms": rec["data_wait_s"] * 1e3,
+            "step_ms": busy_s * 1e3 / rec["steps"],
+            "peak_mem_bytes": rec.get("peak_mem_bytes"), "launches": launched,
+        })
+    check(kernel_counts() == snaps[-1], "fine-tune: kernels launched after "
+          "the last epoch")
+    per_step = epochs[0]["launches"]["shift_lerp_grouped"] / FINETUNE_STEPS
+    kept = sorted(d for d in os.listdir(os.path.join(workdir, "checkpoints"))
+                  if d.startswith("epoch_"))
+    breakdown = finetune_breakdown(torch, state, dev)
+    del state
+    torch.cuda.empty_cache()
+
+    # the evaluate CLI on the last fine-tuned checkpoint
+    ckpt = os.path.join(workdir, "checkpoints", kept[-1])
+    inner = []
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr), timed_evaluate(inner):
+        results = evaluate_cli.main(EVAL_ARGV + ["-checkpoint", ckpt,
+                                                 "--device", str(dev)])
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    eval_counts = kernel_counts()
+    check(len(results) == 9 and all(math.isfinite(v)
+                                    for v in results.values()),
+          f"evaluate CLI results {results}")
+    for kname, n in eval_counts.items():
+        want = 2 * EVAL_BATCHES if kname == "shift_lerp_grouped" else 0
+        check(n == want, f"evaluate CLI: {kname} launched {n} times, want "
+              f"{want}")
+    per_batch = eval_counts["shift_lerp_grouped"] / EVAL_BATCHES
+
+    oracle = oracle_evaluate(torch, dev)
+    exported = port_to_torchvision(torch, dev, pretrained, root)
+    emit("finetune", model="RN25DPose RN50 (RN_25D_wMLPref), f32, TF32 off; "
+         "warp bf16", data="FreiHAND-layout fixture " + TRAINER_FIXTURE,
+         argv=FINETUNE_ARGV, pretrained="trainer phase epoch_0",
+         backbone_equal_to_pretrained=True, step_card_vs_cpu=vs_cpu,
+         seconds=seconds, epochs=epochs, checkpoints_kept=kept,
+         step_breakdown=breakdown,
+         evaluate={"argv": EVAL_ARGV, "checkpoint": kept[-1],
+                   "results": results, "launches": eval_counts,
+                   "cli_seconds": eval_s, "evaluate_seconds": inner[0],
+                   "img_per_s": EVAL_BATCH * EVAL_BATCHES / inner[0]},
+         oracle_evaluate=oracle, port_cli=exported)
+    return {"launches_per_step": per_step, "launches_per_eval_batch": per_batch,
+            "epochs": epochs}
 
 
 # --------------------------------------------------------------------------
@@ -1427,10 +1853,16 @@ def main() -> int:
     pretrain_runs = phase_pretrain(torch, dev)
     phase_pretrain_vs_cpu(torch, dev)
 
-    # ---- 8. the trainer through its CLI ----------------------------------------------
-    trainer_run = phase_trainer(torch, dev)
+    # ---- 8. the trainer through its CLI; 9. fine-tune and evaluate from its
+    # checkpoint --------------------------------------------------------------------
+    root = tempfile.mkdtemp(prefix="peclr_smoke_")
+    try:
+        trainer_run, pretrained = phase_trainer(torch, dev, root)
+        finetune_run = phase_finetune(torch, dev, pretrained, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
-    # ---- 9. kernels line ---------------------------------------------------------
+    # ---- 10. kernels line --------------------------------------------------------
     def summary(name, source, replaces, launches, rows, timed_case, **extra):
         timed = next(r for r in rows if r["case"] == timed_case)
         return {
@@ -1457,6 +1889,14 @@ def main() -> int:
                 launches_per_trainer_epoch=[
                     e["launches"]["shift_lerp_grouped"]
                     for e in trainer_run],
+                launches_per_finetune_step=finetune_run["launches_per_step"],
+                launches_per_eval_batch=finetune_run[
+                    "launches_per_eval_batch"],
+                finetune_ms={r["case"]: r["ms"] for r in kernel_rows
+                             if r["case"].startswith("finetune_")},
+                finetune_device_ms={r["case"]: r["device_ms"]
+                                    for r in kernel_rows
+                                    if r["case"].startswith("finetune_")},
                 path=kernel_of["pass2_bf16_to_bf16"]["path"],
                 pretrain_ms={r["case"]: r["ms"] for r in kernel_rows
                              if r["case"].startswith("pretrain_")},

@@ -127,6 +127,11 @@ class HostPipeline:
     def __len__(self):
         return sum(len(s) for s in self.sources)
 
+    def steps_per_epoch(self) -> int:
+        """Whole batches in one pass over the sources (0 when the split
+        holds fewer samples than a batch)."""
+        return len(self) // self.batch_size
+
     @staticmethod
     def _labels_from_record(rec) -> Dict[str, np.ndarray]:
         """The label fields of a sample, shared by both decode paths so that

@@ -11,7 +11,8 @@ Closed-form scale-normalized root depth from the middle_mcp (3) <->
 middle_pip (8) bone with unit length (Iqbal et al. eq 6-7), clamped to
 [4, 50] and detached, then refined by zroot + mlp([zrel(21), xy_unnorm(42),
 zroot(1)]).  The MLP is a Sequential whose indices 0/1/3/4/6 are the
-released checkpoint's `zroot_ref.zroot_ref.N` keys.
+released checkpoint's `zroot_ref.zroot_ref.N` keys; its BatchNorms update
+their running statistics as flax does (models/batchnorm.py).
 """
 
 from __future__ import annotations
@@ -43,10 +44,10 @@ class ZrootRefineMLP(nn.Module):
         self.eps = eps
         self.zroot_ref = nn.Sequential(
             nn.Linear(21 + 42 + 1, 128),
-            nn.BatchNorm1d(128),
+            BatchNorm1d(128),
             nn.LeakyReLU(0.01),
             nn.Linear(128, 128),
-            nn.BatchNorm1d(128),
+            BatchNorm1d(128),
             nn.LeakyReLU(0.01),
             nn.Linear(128, 1),
         )

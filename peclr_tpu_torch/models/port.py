@@ -4,6 +4,10 @@ name tables of peclr_tpu/models/port.py:34-133, :184-197, :226-237 and
 
 Each table entry is (torch_name, collection, flax_path, kind) with kind
 'conv' (HWIO -> OIHW), 'dense_w' ((in, out) -> (out, in)) or 'copy'.
+
+Between torch layouts (a PeCLR checkpoint's encoder and torchvision's
+ResNet) the conversion is a rename of keys: `peclr_to_torchvision`,
+`torchvision_to_peclr_encoder`.
 """
 
 from __future__ import annotations
@@ -164,3 +168,47 @@ def peclr_variables_to_state_dict(variables: Mapping, size: str
     """PeCLRModel flax variables -> a state dict for the port's PeCLRModel
     that loads with `load_state_dict(strict=True)`."""
     return variables_to_state_dict(variables, peclr_mapping(size))
+
+
+# ---------------------------------------------------------------------------
+# Key renames between torch state dicts (port of the reference's
+# peclr_to_torchvision and torchvision_to_peclr_encoder, :226-259, which do
+# the same over flax variables)
+
+
+def _renamed(state_dict: Mapping[str, torch.Tensor], size: str,
+             name_of) -> Dict[str, torch.Tensor]:
+    """The encoder entries of resnet_mapping(size), each read from
+    state_dict[name_of(torchvision name)] and stored under the torchvision
+    name, with `num_batches_tracked` beside each running variance (0 where
+    the source has none).  Raises KeyError for a missing entry."""
+    out: Dict[str, torch.Tensor] = {}
+    for tv_name, _, _, _ in resnet_mapping(size):
+        key = name_of(tv_name)
+        if key not in state_dict:
+            raise KeyError(f"missing checkpoint key: {key}")
+        out[tv_name] = torch.as_tensor(state_dict[key])
+        if tv_name.endswith("running_var"):
+            tv_count = tv_name.replace("running_var", "num_batches_tracked")
+            count = state_dict.get(name_of(tv_count))
+            out[tv_count] = (torch.zeros((), dtype=torch.int64) if count is None
+                             else torch.as_tensor(count))
+    return out
+
+
+def peclr_to_torchvision(state_dict: Mapping[str, torch.Tensor], size: str
+                         ) -> Dict[str, torch.Tensor]:
+    """A PeCLR checkpoint's encoder (`encoder.features.N.*`) under the
+    torchvision keys (`conv1`, `bn1`, `layer1..4.*`, no fc); the projection
+    head is left out."""
+    return _renamed(state_dict, size,
+                    lambda name: "encoder." + _features_name(name))
+
+
+def torchvision_to_peclr_encoder(state_dict: Mapping[str, torch.Tensor],
+                                 size: str, prefix: str = ""
+                                 ) -> Dict[str, torch.Tensor]:
+    """torchvision weights (keys under `prefix`; fc is ignored) as the
+    encoder of a PeCLR checkpoint: `encoder.features.N.*`."""
+    tv = _renamed(state_dict, size, lambda name: prefix + name)
+    return {"encoder." + _features_name(k): v for k, v in tv.items()}

@@ -31,7 +31,7 @@ from peclr_tpu_torch.geometry.affine import rotation_about_center
 from peclr_tpu_torch.ops import image as im
 from peclr_tpu_torch.ops.warp_mxu import affine_warp_mxu
 
-#: flags whose ops are not ported yet (ROADMAP queue 1 item 4)
+#: flags whose ops are not ported yet (ROADMAP queue 1 item 5)
 UNPORTED_FLAGS = ("sobel_filter", "cut_out", "gaussian_blur",
                   "gaussian_noise", "color_drop")
 
@@ -49,7 +49,7 @@ def _check_flags(flags: AugmentationFlags) -> None:
     if unported:
         raise NotImplementedError(
             f"augmentation flags {unported} are not ported to "
-            "peclr_tpu_torch yet (ROADMAP queue 1 item 4)")
+            "peclr_tpu_torch yet (ROADMAP queue 1 item 5)")
 
 
 def _warp_window_bounds(src_hw, out_hw, params: AugmentationParams,

@@ -1,6 +1,7 @@
 """Checkpoints: save and restore with top-k retention on the monitored train
-loss, latest-checkpoint discovery, and reading torch checkpoints (port of
-peclr_tpu/train/checkpoint.py:30-131 and :180-191).
+loss, latest-checkpoint discovery, reading torch checkpoints, and the .npz
+exports in the reference's and torchvision's layouts (port of
+peclr_tpu/train/checkpoint.py:30-131 and :157-191).
 
 Policy (the reference's Lightning ModelCheckpoint): keep `save_top_k`
 checkpoints, saved every `period` epochs, ranked by `checkpoint_saving_loss`
@@ -21,6 +22,8 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+
+from peclr_tpu_torch.models.port import peclr_mapping, peclr_to_torchvision
 
 STATE_FILE = "state.pt"
 
@@ -142,6 +145,45 @@ def save_experiment_key(meta_dir: str, experiment_name: str,
     os.makedirs(meta_dir, exist_ok=True)
     with open(os.path.join(meta_dir, filename), "a") as f:
         f.write(f"{experiment_name},{experiment_key}\n")
+
+
+def model_state_dict(state) -> Dict[str, torch.Tensor]:
+    """The model's state dict, on the CPU, of a TrainState, of a checkpoint
+    directory (epoch_N, holding state.pt) or of a state.pt file."""
+    if isinstance(state, str):
+        path = os.path.join(state, STATE_FILE) if os.path.isdir(state) else state
+        return torch.load(path, map_location="cpu", weights_only=True)["model"]
+    return {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
+
+
+def save_npz(path: str, state_dict: Dict[str, torch.Tensor]
+             ) -> Dict[str, torch.Tensor]:
+    """Write a state dict of CPU tensors as an .npz; returns it."""
+    np.savez(path, **{k: v.numpy() for k, v in state_dict.items()})
+    return state_dict
+
+
+def export_torch_peclr(state, resnet_size: str, path: str
+                       ) -> Dict[str, torch.Tensor]:
+    """Write a PeCLR model's weights as an .npz with the reference
+    checkpoint's keys (`encoder.features.*`, `projection_head.*`), the keys
+    the port's PeCLRModel already has.  `state`: as model_state_dict.
+    Returns what was written."""
+    sd = model_state_dict(state)
+    missing = [name for name, _, _, _ in peclr_mapping(resnet_size)
+               if name not in sd]
+    if missing:
+        raise KeyError(f"not a PeCLR RN{resnet_size} state: missing "
+                       f"{missing[:3]} ({len(missing)} in all)")
+    return save_npz(path, sd)
+
+
+def export_torchvision(state, resnet_size: str, path: str
+                       ) -> Dict[str, torch.Tensor]:
+    """Write a PeCLR model's encoder as an .npz with torchvision's keys
+    (no fc).  `state`: as model_state_dict.  Returns what was written."""
+    return save_npz(path, peclr_to_torchvision(model_state_dict(state),
+                                               resnet_size))
 
 
 def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:

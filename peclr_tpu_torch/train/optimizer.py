@@ -126,10 +126,11 @@ class PretrainOptimizer(torch.optim.Optimizer):
         bc1 = float(np.float32(1.0) - np.float32(b1) ** t)
         bc2 = float(np.float32(1.0) - np.float32(b2) ** t)
         for group in self.param_groups:
-            params = [p for p in group["params"] if p.grad is not None]
-            if not params:
-                continue
-            grads = [p.grad for p in params]
+            params = group["params"]
+            # a parameter the loss does not reach has a zero gradient, as
+            # in jax.grad: its decayed weight still goes through Adam
+            grads = [torch.zeros_like(p) if p.grad is None else p.grad
+                     for p in params]
             wd = group["weight_decay"]
             upd = torch._foreach_add(grads, params, alpha=wd)
             if self.lars:

@@ -180,5 +180,5 @@ def test_window_bounds_and_crop_box_match(rng):
 @pytest.mark.parametrize("flag", augment.UNPORTED_FLAGS)
 def test_unported_flags_raise(flag):
     flags = AugmentationFlags(**{flag: True})
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
         augment.draw(torch.Generator(), 2, flags, AugmentationParams())

@@ -444,3 +444,37 @@ def test_prefetch_copier_reuses_its_pinned_buffers(card, monkeypatch):
                pipeline.device_prefetch(iter(host), card, copier=copier)]
         assert all(np.array_equal(g, h["image"]) for g, h in zip(got, host))
     assert len(pinned) == 2  # two slots, pinned once
+
+
+def test_finetune_cli_one_epoch_on_the_card(card, tmp_path, monkeypatch):
+    """One epoch of the fine-tune CLI at RN50 on the card (FreiHAND-layout
+    data written to a temporary directory, 224² canvases to 64² crops, 2
+    steps of 8): finite losses, the model on the card, TF32 off, kernel 1
+    launched twice a step and the other kernels not at all; a
+    checkpoint."""
+    import os
+
+    from peclr_tpu_torch import constants
+    from peclr_tpu_torch.cli import finetune as cli
+    from peclr_tpu_torch.data.synthetic import generate_freihand_like
+
+    fh = generate_freihand_like(str(tmp_path / "fh"), num_unique=8, seed=7)
+    monkeypatch.setattr(constants, "FREIHAND_DATA", fh)
+    counts = (lambda: (fused_shift_lerp_grouped.launches,
+                       fused_shift_lerp_grouped.raw_launches,
+                       fused_shift_lerp.launches,
+                       fused_shift_lerp_matmul.launches))
+    before = counts()
+    state, records = cli.main([
+        "-batch_size", "8", "-epochs", "1", "-steps_per_epoch", "2",
+        "-resnet_size", "50", "-crop_size", "64", "-train_ratio", "0.75",
+        "-num_workers", "2", "-workdir", str(tmp_path / "ft")])
+    torch.cuda.synchronize()
+    after = counts()
+    assert all(p.device.type == "cuda" for p in state.model.parameters())
+    assert not torch.backends.cudnn.allow_tf32
+    assert after[0] - before[0] == 2 * 2
+    assert after[1:] == before[1:]
+    assert records[0]["steps"] == 2 and np.isfinite(records[0]["loss"])
+    assert os.path.exists(os.path.join(str(tmp_path / "ft"), "checkpoints",
+                                       "epoch_0", "state.pt"))
