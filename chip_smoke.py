@@ -23,7 +23,9 @@ one JSON line that carries the card's name and power limit:
               row count, rows clamped at both ends, dense, tent, zero and
               ragged taps, with the mean band width the kernel walks
               (band_taps_mean), and its band pass bit-exact; kernel, plain,
-              bound and library (or grouped-route) times
+              bound and library (or grouped-route) times; kernels 1, 3 and 4
+              also on the bf16 first-pass sources of the all-flags
+              augmentation (phase 10), captured from `augment.apply`
   4. warp     affine_warp_mxu at the pred_fh geometry, kernel against plain,
               both in bf16 on the card: max abs <= 2.5 (the TPU's bound for
               the same comparison); then the pretrain geometry (256 seeded
@@ -79,7 +81,22 @@ one JSON line that carries the card's name and power limit:
               5e-3, AUC > 0.9); the port CLI's torchvision export of the
               trainer's checkpoint loaded strictly into a torchvision-keyed
               ResNet, its embedding equal to the encoder's within 1e-5
- 10. kernels  one line listing every ported kernel
+ 10. ablation every augmentation flag the CLI takes (the recipe's, random
+              crops, sobel, cut-out, blur, noise, colour drop): one RN50
+              recipe step on each warp route (grouped, nhwc, matmul, gather)
+              from one state, a finite loss, the route's kernel 2 x 16 times
+              and no other (none on gather); the RN18 step card against CPU
+              in f32 on the grouped and gather routes (loss and BatchNorm
+              statistics within 1e-3); the pretraining CLI with every flag
+              at the recipe for two epochs of one step over the fixture:
+              per epoch the losses, img/s, ms, the wait, peak memory and
+              launches (kernel 1: 2 x 16 a step + 2 a validation batch);
+              where the augmentation's time goes (augment_pair with the
+              recipe's flags and with every flag, each op alone).
+              The kernel phase holds the first pass of this path, whose
+              sources are bf16 (the f32 canvases of sobel, cut-out and blur
+              in the warp's compute dtype), for kernels 1, 3 and 4
+ 11. kernels  one line listing every ported kernel
 Then the card's nvidia-smi line, and last the contract line
 {"ok": true, "device": {...}}.  No weights are read (they are made from a
 seed); the only data read is the trainer's fixture.
@@ -89,6 +106,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 import importlib
 import itertools
 import json
@@ -131,6 +149,18 @@ FINETUNE_ARGV = ["-resnet_size", "50", "-batch_size", str(FINETUNE_BATCH),
                  "-save_top_k", "2"]
 EVAL_ARGV = ["-resnet_size", "50", "-batch_size", str(EVAL_BATCH),
              "-num_batches", str(EVAL_BATCHES), "-train_ratio", "0.75"]
+#: every augmentation flag the CLI takes but flip (a no-op): the recipe's,
+#: random crops and the five outside the recipe
+ABLATION_FLAGS = ("rotate", "crop", "color_jitter", "resize", "random_crop",
+                  "sobel_filter", "cut_out", "gaussian_blur",
+                  "gaussian_noise", "color_drop")
+ABLATION_ROUTES = ("grouped", "nhwc", "matmul", "gather")
+#: the pretraining CLI at the recipe with all the flags, 2 epochs of 1 step
+ABLATION_ARGV = ["--" + f for f in ABLATION_FLAGS] + [
+    "-sources", "freihand", "-batch_size", str(MICROBATCH),
+    "-accumulate_grad_batches", str(ACCUM), "-resnet_size", "50",
+    "-optimizer", "LARS", "-train_ratio", "0.75", "-num_workers", "8",
+    "-save_top_k", "1", "-epochs", "2"]
 CARD = ""
 
 
@@ -310,6 +340,56 @@ def finetune_shift_calls(torch, dev):
     return calls
 
 
+def ablation_flags():
+    from peclr_tpu_torch.config.defaults import AugmentationFlags
+
+    return AugmentationFlags(**{f: True for f in ABLATION_FLAGS})
+
+
+def ablation_pass1_call(torch, dev, route):
+    """The first-pass kernel call of the warp on `route` in one augmentation
+    of the recipe's doubled microbatch (256 seeded 224² canvases to 128²,
+    bf16) with every flag on: sobel, cut-out and blur turn the canvases f32,
+    so the pass reads bf16 sources.  Returns the call's (args, kwargs)."""
+    from peclr_tpu_torch.config.defaults import AugmentationParams
+    from peclr_tpu_torch.data.synthetic import seeded_frames
+    from peclr_tpu_torch.ops import augment, shift_lerp, warp_mxu
+    from peclr_tpu_torch.train.recipe import synthetic_pretrain_batch
+
+    module, name = {"grouped": (warp_mxu, "fused_shift_lerp_grouped"),
+                    "nhwc": (shift_lerp, "fused_shift_lerp"),
+                    "matmul": (warp_mxu, "fused_shift_lerp_matmul")}[route]
+    n, params = 2 * MICROBATCH, AugmentationParams()
+    frames = torch.from_numpy(seeded_frames(n, SEED + 14)).to(dev)
+    joints = synthetic_pretrain_batch(n, 224, SEED + 15, device=dev)["joints25d"]
+    draws = augment.draw(torch.Generator(device=dev).manual_seed(SEED + 16),
+                         n, ablation_flags(), params)
+    calls = []
+    real = getattr(module, name)
+
+    def capture(*args, **kwargs):
+        calls.append((tuple(a.clone() if torch.is_tensor(a) else a
+                            for a in args), dict(kwargs)))
+        return real(*args, **kwargs)
+
+    # the flat kernel counts its launches on its module's name, which is
+    # `capture` meanwhile: give it the counters and hand them back
+    functools.update_wrapper(capture, real)
+    setattr(module, name, capture)
+    try:
+        augment.apply(frames, joints, draws, ablation_flags(), params,
+                      route=route)
+    finally:
+        setattr(module, name, real)
+        real.__dict__.update(capture.__dict__)
+    check(len(calls) == 2, f"an all-flags {route} warp made {len(calls)} "
+          "kernel calls, want 2")
+    args, kwargs = calls[0]
+    check(args[0].dtype == torch.bfloat16, f"all-flags {route} pass 1 read "
+          f"{args[0].dtype}, want bf16")
+    return args, kwargs
+
+
 def phase_kernel(torch, dev):
     """Kernels 1 and 2 (the grouped shift, lerp and raw mode) bit for bit
     against the plain version.  The leaderboard's, the pretrain recipe's and
@@ -354,6 +434,8 @@ def phase_kernel(torch, dev):
     # the fine-tune's two calls as its main path makes them: (k, f) given
     (ft1, k1, f1, out1, dt1), (ft2, k2, f2, out2, dt2) = finetune_shift_calls(
         torch, dev)
+    # the all-flags pass 1 (bf16 sources) as the pretrain step makes it
+    (ab, ka, fa, outa), kwa = ablation_pass1_call(torch, dev, "grouped")
     cases = [
         ("pass1_u8_to_bf16", True, u8, wide, torch.bfloat16, out, vec),
         ("pass1_u8_to_f32", True, u8, wide, torch.float32, out, vec),
@@ -367,6 +449,8 @@ def phase_kernel(torch, dev):
          offsets(n2, -296.0, 264.0), torch.bfloat16, 256, vec),
         ("finetune_pass1_u8_to_bf16", True, ft1, (k1, f1), dt1, out1, vec),
         ("finetune_pass2_bf16_to_bf16", True, ft2, (k2, f2), dt2, out2, vec),
+        ("ablation_pass1_bf16_to_bf16", True, ab, (ka, fa),
+         kwa["out_dtype"], outa, vec),
         ("unaligned_view_u8_to_bf16", True, unaligned,
          offsets(1001, -800.0, 260.0), torch.bfloat16, out, scalar),
         ("odd_w_130_u8_to_bf16", True, w130, offsets(1001, -800.0, 170.0),
@@ -476,9 +560,9 @@ def phase_flat_kernel(torch, dev):
     clamped = torch.cat([offsets(n1 // 2, -5000.0, -(384 + 3.0)),
                          offsets(n1 - n1 // 2, w_px + 1.0, 5000.0)])
     vec, scalar = "vec16", "scalar"
-    # the fine-tune's two calls as its main path makes them: (k, f) given
-    (ft1, k1, f1, out1, dt1), (ft2, k2, f2, out2, dt2) = finetune_shift_calls(
-        torch, dev)
+    # the all-flags pass 1 (bf16 sources) as the pretrain step makes it
+    (ab, ka, fa, outa, ca), kwa = ablation_pass1_call(torch, dev, "nhwc")
+    check(ca == c, f"the nhwc route's pass 1 has {ca} channels")
     cases = [
         ("flat_pass1_u8_to_bf16", u8, 384, offsets(n1, -424.0, 264.0),
          torch.bfloat16, vec),
@@ -489,6 +573,8 @@ def phase_flat_kernel(torch, dev):
         ("flat_odd_n_1001_u8_to_bf16", odd, 384, offsets(1001, -424.0, 264.0),
          torch.bfloat16, vec),
         ("flat_clamped_rows_u8_to_f32", u8, 384, clamped, torch.float32, vec),
+        ("flat_ablation_pass1_bf16_to_bf16", ab, outa // c, (ka, fa),
+         kwa["out_dtype"], vec),
         ("flat_unaligned_view_u8_to_bf16", unaligned, 384,
          offsets(1001, -424.0, 264.0), torch.bfloat16, scalar),
         ("flat_odd_w_130_u8_to_bf16", w130, 384, offsets(1001, -424.0, 170.0),
@@ -498,9 +584,13 @@ def phase_flat_kernel(torch, dev):
     ]
     results = []
     for name, rows, out_w, off, out_dtype, want_path in cases:
-        k_true = torch.floor(off)
-        k = k_true.clamp(-(out_w + 2), rows.shape[1] // c).to(torch.int32)
-        f = (off - k_true).to(torch.float32)
+        if isinstance(off, tuple):  # a captured call's own k and f
+            k, f = off
+            off = k.float() + f
+        else:
+            k_true = torch.floor(off)
+            k = k_true.clamp(-(out_w + 2), rows.shape[1] // c).to(torch.int32)
+            f = (off - k_true).to(torch.float32)
         out_elems = out_w * c
 
         def kern():
@@ -626,7 +716,11 @@ def phase_matmul_kernel(torch, dev):
     dense = (dense / dense.sum(dim=2, keepdim=True)).to(torch.bfloat16)
     pass1_taps = taps(b, 384, 128, 1.0, 2.5, torch.bfloat16)
     pass2_taps = taps(b, 256, 128, 1.0, 1.75, torch.bfloat16)
+    # the all-flags pass 1 (bf16 sources) as the pretrain step makes it
+    (ab, ka, fa, wa), kwa = ablation_pass1_call(torch, dev, "matmul")
     cases = [
+        ("matmul_ablation_pass1_bf16_to_bf16", ab, (ka, fa), wa,
+         kwa["out_dtype"], 1.0),
         ("matmul_pass1_u8_to_bf16", p1, uniform(n1, -424.0, 264.0),
          pass1_taps, torch.bfloat16, 1.0),
         ("matmul_pass2_bf16_to_f32", p2, uniform(b * 128, -296.0, 264.0),
@@ -653,9 +747,12 @@ def phase_matmul_kernel(torch, dev):
     for name, rows4, off, w_t, out_dtype, tol in cases:
         g, nb, r, w = rows4.shape
         u = w_t.shape[2]
-        k_true = torch.floor(off)
-        k = k_true.clamp(-(u + 2), w).to(torch.int32)
-        f = (off - k_true).to(torch.float32)
+        if isinstance(off, tuple):  # a captured call's own k and f
+            k, f = off
+        else:
+            k_true = torch.floor(off)
+            k = k_true.clamp(-(u + 2), w).to(torch.int32)
+            f = (off - k_true).to(torch.float32)
 
         def kern():
             return fused_shift_lerp_matmul(rows4, k, f, w_t, out_dtype)
@@ -946,14 +1043,12 @@ def phase_pretrain(torch, dev):
     return runs
 
 
-def phase_pretrain_vs_cpu(torch, dev):
-    """The dry-run shape on the card and on the CPU, both in f32 (TF32 off)
-    with the same draws: loss within 1e-3 relative, BatchNorm running
-    statistics within 1e-3 of each tensor's scale."""
-    from peclr_tpu_torch.config.defaults import (
-        AugmentationParams,
-        peclr_pretrain_flags,
-    )
+def step_vs_cpu(torch, dev, flags, routes, seed):
+    """The dry-run shape (RN18, 64 -> 32, accum 2) on the card and on the
+    CPU, both in f32 (TF32 off) with the same draws, on each route: loss
+    within 1e-3 relative, BatchNorm running statistics within 1e-3 of each
+    tensor's scale."""
+    from peclr_tpu_torch.config.defaults import AugmentationParams
     from peclr_tpu_torch.ops import augment
     from peclr_tpu_torch.train.recipe import (
         build_pretrain_state,
@@ -961,13 +1056,12 @@ def phase_pretrain_vs_cpu(torch, dev):
     )
     from peclr_tpu_torch.train.step import make_peclr_train_step
 
-    flags, params = peclr_pretrain_flags(), AugmentationParams(
-        resize_shape=(32, 32))
-    gen = torch.Generator().manual_seed(SEED + 9)
+    params = AugmentationParams(resize_shape=(32, 32))
+    gen = torch.Generator().manual_seed(seed)
     draws = [augment.draw(gen, 8, flags, params) for _ in range(2)]
-    batch = synthetic_pretrain_batch(8, 64, SEED + 9, device="cpu")
+    batch = synthetic_pretrain_batch(8, 64, seed, device="cpu")
     result = {}
-    for route in ("grouped", "matmul"):
+    for route in routes:
         states = {}
         losses = {}
         for where in ("cpu", dev):
@@ -983,16 +1077,27 @@ def phase_pretrain_vs_cpu(torch, dev):
                                   if "running" in k}
         cpu_loss, card_loss = losses["cpu"], losses[str(dev)]
         rel = abs(card_loss / cpu_loss - 1.0)
-        check(rel <= 1e-3, f"{route}: RN18 loss card vs CPU rel {rel} > 1e-3")
+        what = f"{route} ({len(flags.active())} flags)"
+        check(rel <= 1e-3, f"{what}: RN18 loss card vs CPU rel {rel} > 1e-3")
         worst = 0.0
         for key, ref in states["cpu"].items():
             err = (states[str(dev)][key] - ref).abs().max().item()
             worst = max(worst, err / max(ref.abs().max().item(), 1e-12))
-        check(worst <= 1e-3, f"{route}: BN stats card vs CPU {worst} > 1e-3")
+        check(worst <= 1e-3, f"{what}: BN stats card vs CPU {worst} > 1e-3")
         result[route] = {"loss_cpu": cpu_loss, "loss_card": card_loss,
-                         "loss_rel": rel, "bn_stats_worst_rel": worst}
+                         "loss_rel": rel, "bn_stats_worst_rel": worst,
+                         "tolerance": 1e-3}
+    return result
+
+
+def phase_pretrain_vs_cpu(torch, dev):
+    """step_vs_cpu with the recipe's flags on the grouped and matmul
+    routes."""
+    from peclr_tpu_torch.config.defaults import peclr_pretrain_flags
+
     emit("pretrain_vs_cpu", model="PeCLR RN18, 64 -> 32, accum 2, f32, "
-         "TF32 off", routes=result)
+         "TF32 off", routes=step_vs_cpu(torch, dev, peclr_pretrain_flags(),
+                                        ("grouped", "matmul"), SEED + 9))
 
 
 # --------------------------------------------------------------------------
@@ -1601,6 +1706,179 @@ def phase_finetune(torch, dev, pretrained, root):
 
 
 # --------------------------------------------------------------------------
+# phase 10: the augmentation ablation (every flag) through the CLI
+
+
+def ablation_routes(torch, dev):
+    """One RN50 pretrain step at the recipe (128 x 16, bf16) with every flag
+    on each warp route, from one seeded state and batch: a finite loss, the
+    route's kernel 2 x 16 times and no other (none on the gather route),
+    the step's ms and peak memory.  The three two-pass routes' losses
+    within 1e-2 of each other (as the recipe's); the gather warp is
+    bilinear, not a lerp of lerps, and its loss is reported."""
+    from peclr_tpu_torch.config.defaults import AugmentationParams
+    from peclr_tpu_torch.train.recipe import (
+        build_pretrain_state,
+        synthetic_pretrain_batch,
+    )
+    from peclr_tpu_torch.train.step import make_peclr_train_step
+
+    model, state, opt = build_pretrain_state("50", batch=MICROBATCH,
+                                             accum=ACCUM, device=dev)
+    batch = synthetic_pretrain_batch(MICROBATCH * ACCUM, 224, SEED + 17,
+                                     device=dev)
+    snapshot = ({k: v.clone() for k, v in model.state_dict().items()},
+                copy.deepcopy(opt.state_dict()))
+    kernel_of = {"grouped": "shift_lerp_grouped", "nhwc": "shift_lerp_flat",
+                 "matmul": "shift_lerp_matmul", "gather": None}
+    runs = {}
+    for route in ABLATION_ROUTES:
+        model.load_state_dict(snapshot[0])
+        opt.load_state_dict(snapshot[1])
+        state.step = 0
+        step = make_peclr_train_step(model, opt, ablation_flags(),
+                                     AugmentationParams(), accum=ACCUM,
+                                     warp_route=route)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch,
+                              torch.Generator(device=dev).manual_seed(SEED + 18))
+        loss = metrics["loss"].item()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = kernel_counts()
+        check(math.isfinite(loss), f"all-flags {route}: loss not finite")
+        for kname, launched in counts.items():
+            want = 2 * ACCUM if kname == kernel_of[route] else 0
+            check(launched == want, f"all-flags {route}: {kname} launched "
+                  f"{launched} times in a step, want {want}")
+        runs[route] = {"first_loss": loss, "launches": counts,
+                       "ms_per_step": seconds * 1e3,
+                       "img_per_s": MICROBATCH * ACCUM / seconds,
+                       "peak_mem_bytes": torch.cuda.max_memory_allocated(dev)}
+    for route in ("nhwc", "matmul"):
+        rel = abs(runs[route]["first_loss"] / runs["grouped"]["first_loss"]
+                  - 1.0)
+        check(rel <= 1e-2, f"all-flags first loss {route} vs grouped: rel "
+              f"{rel} > 1e-2")
+        runs[route]["loss_rel_vs_grouped"] = rel
+    runs["gather"]["loss_rel_vs_grouped"] = abs(
+        runs["gather"]["first_loss"] / runs["grouped"]["first_loss"] - 1.0)
+    del model, state, opt, batch, snapshot
+    torch.cuda.empty_cache()
+    return runs
+
+
+def ablation_augment(torch, dev):
+    """Where the augmentation's time goes with every flag: one augment_pair
+    of the recipe's microbatch (128 seeded canvases, 224 -> 128, grouped,
+    bf16) with the recipe's flags and with every flag (CUDA-event ms over
+    the host's pacing, profiler device ms), and each op outside the recipe
+    alone at the shape it sees (the doubled microbatch's f32 canvases, or
+    its views)."""
+    from peclr_tpu_torch.config.defaults import (
+        AugmentationParams,
+        peclr_pretrain_flags,
+    )
+    from peclr_tpu_torch.data.synthetic import seeded_frames
+    from peclr_tpu_torch.ops import augment
+    from peclr_tpu_torch.ops import image as im
+    from peclr_tpu_torch.train.recipe import synthetic_pretrain_batch
+
+    params, n = AugmentationParams(), MICROBATCH
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    frames = torch.from_numpy(seeded_frames(n, SEED + 20)).to(dev)
+    joints = synthetic_pretrain_batch(n, 224, SEED + 21, device=dev)["joints25d"]
+    pair = {}
+    for name, flags in (("recipe", peclr_pretrain_flags()),
+                        ("all_flags", ablation_flags())):
+        draws = augment.draw(gen, 2 * n, flags, params)
+
+        def run(flags=flags, draws=draws):
+            return augment.augment_pair(None, frames, joints, flags, params,
+                                        draws=draws,
+                                        compute_dtype=torch.bfloat16)
+
+        pair[name] = {"ms": cuda_ms(run, 5), "device_ms": device_ms(run, 3)}
+    canvases = torch.cat([frames, frames]).float()
+    views = torch.rand((2 * n, 128, 128, 3), generator=gen, device=dev) * 255
+    d = augment.draw(gen, 2 * n, ablation_flags(), params)
+    anchor = joints.repeat(2, 1, 1)[:, 0, :2]
+    ops = {
+        "sobel_filter": lambda: im.sobel_filter(canvases),
+        "cutout": lambda: im.cutout(canvases, anchor, d["cut_out_fraction"],
+                                    d["cut_out_fill"]),
+        "gaussian_blur": lambda: im.gaussian_blur(canvases, d["sigma"]),
+        "gaussian_noise": lambda: im.gaussian_noise(views, d["noise"]),
+        "grayscale": lambda: im.grayscale(views),
+    }
+    op_ms = {name: {"ms": cuda_ms(fn, 5), "device_ms": device_ms(fn, 3)}
+             for name, fn in ops.items()}
+    return {"augment_pair_ms": pair, "ops_ms": op_ms,
+            "ops_shapes": {"canvases": list(canvases.shape),
+                           "views": list(views.shape)}}
+
+
+def phase_ablation(torch, dev):
+    """Every augmentation flag: the four routes one recipe step each, the
+    RN18 card-against-CPU check, then the pretraining CLI at the recipe for
+    two epochs of one step over the fixture (the trainer phase's constants:
+    its data and output paths), its counts set to 0 just before and read
+    at each validation (module docstring, phase 10)."""
+    t_phase = time.perf_counter()
+    routes = ablation_routes(torch, dev)
+    augment_time = ablation_augment(torch, dev)
+    # the bound of the recipe's check (phase 7)
+    vs_cpu = step_vs_cpu(torch, dev, ablation_flags(), ("grouped", "gather"),
+                         SEED + 19)
+    torch.cuda.empty_cache()
+    trainer, snaps, seconds = run_trainer(torch, ABLATION_ARGV, dev)
+    counts = kernel_counts()
+    records = trainer_epochs(trainer)
+    check(trainer.train_cfg.augmentation_flags == ablation_flags(),
+          "ablation: the CLI's flags")
+    figure = 2 if trainer.log_images else 0
+    per_epoch = 2 * ACCUM + 2 + figure
+    images = MICROBATCH * ACCUM
+    epochs = []
+    for epoch in range(2):
+        rec, val = records[("train", epoch)], records[("val", epoch)]
+        check(rec["steps"] == 1 and math.isfinite(rec["loss"])
+              and math.isfinite(val["loss"]),
+              f"ablation epoch {epoch}: {rec['steps']} steps, loss "
+              f"{rec['loss']}, val {val['loss']}")
+        before = snaps[epoch - 1] if epoch else {k: 0 for k in counts}
+        launched = {k: snaps[epoch][k] - before[k] for k in counts}
+        for kname, n in launched.items():
+            want = per_epoch if kname == "shift_lerp_grouped" else 0
+            check(n == want, f"ablation epoch {epoch}: {kname} launched {n} "
+                  f"times, want {want}")
+        busy_s = rec["epoch_time_s"] - rec["data_wait_s"]
+        epochs.append({
+            "epoch": epoch, "loss": rec["loss"], "val_loss": val["loss"],
+            "img_per_s": images / rec["epoch_time_s"],
+            "epoch_ms": rec["epoch_time_s"] * 1e3,
+            "prefetch_wait_ms": rec["data_wait_s"] * 1e3,
+            "step_ms": busy_s * 1e3,
+            "peak_mem_bytes": rec.get("peak_mem_bytes"), "launches": launched,
+        })
+    check(counts == snaps[-1], "ablation: kernels launched after the last "
+          "validation")
+    del trainer
+    torch.cuda.empty_cache()
+    emit("ablation", data="FreiHAND-layout fixture " + TRAINER_FIXTURE,
+         argv=ABLATION_ARGV, model="PeCLR RN50 + projection head, LARS, "
+         "bf16 autocast", images_per_step=images, pair_figure=bool(figure),
+         seconds=seconds, epochs=epochs, routes=routes,
+         step_card_vs_cpu=vs_cpu, augment_time=augment_time,
+         phase_seconds=time.perf_counter() - t_phase)
+    return {"launches_per_step": 2 * ACCUM, "epochs": epochs,
+            "routes": routes}
+
+
+# --------------------------------------------------------------------------
 # phase 4 / 5 inputs
 
 
@@ -1859,10 +2137,12 @@ def main() -> int:
     try:
         trainer_run, pretrained = phase_trainer(torch, dev, root)
         finetune_run = phase_finetune(torch, dev, pretrained, root)
+        # ---- 10. every augmentation flag, through the same CLI -----------------
+        ablation_run = phase_ablation(torch, dev)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
-    # ---- 10. kernels line --------------------------------------------------------
+    # ---- 11. kernels line --------------------------------------------------------
     def summary(name, source, replaces, launches, rows, timed_case, **extra):
         timed = next(r for r in rows if r["case"] == timed_case)
         return {
@@ -1892,6 +2172,13 @@ def main() -> int:
                 launches_per_finetune_step=finetune_run["launches_per_step"],
                 launches_per_eval_batch=finetune_run[
                     "launches_per_eval_batch"],
+                launches_per_ablation_epoch=[
+                    e["launches"]["shift_lerp_grouped"]
+                    for e in ablation_run["epochs"]],
+                ablation_pass1_ms=kernel_of["ablation_pass1_bf16_to_bf16"][
+                    "ms"],
+                ablation_pass1_device_ms=kernel_of[
+                    "ablation_pass1_bf16_to_bf16"]["device_ms"],
                 finetune_ms={r["case"]: r["ms"] for r in kernel_rows
                              if r["case"].startswith("finetune_")},
                 finetune_device_ms={r["case"]: r["device_ms"]
@@ -1914,7 +2201,13 @@ def main() -> int:
                 flat_rows, "flat_pass2_bf16_to_bf16",
                 path=flat_of["flat_pass2_bf16_to_bf16"]["path"],
                 pass1_ms=flat_of["flat_pass1_u8_to_bf16"]["ms"],
-                pass1_device_ms=flat_of["flat_pass1_u8_to_bf16"]["device_ms"]),
+                pass1_device_ms=flat_of["flat_pass1_u8_to_bf16"]["device_ms"],
+                launches_per_ablation_step=ablation_run["routes"]["nhwc"][
+                    "launches"]["shift_lerp_flat"],
+                ablation_pass1_ms=flat_of["flat_ablation_pass1_bf16_to_bf16"][
+                    "ms"],
+                ablation_pass1_device_ms=flat_of[
+                    "flat_ablation_pass1_bf16_to_bf16"]["device_ms"]),
         summary("shift_lerp_matmul",
                 "peclr_tpu_torch/csrc/shift_lerp_matmul.cu",
                 "peclr_tpu/ops/pallas/barrel_shift.py:392",
@@ -1925,7 +2218,13 @@ def main() -> int:
                 band_taps_mean=matmul_of["matmul_pass1_u8_to_bf16"][
                     "band_taps_mean"],
                 pass2_ms=matmul_of["matmul_pass2_bf16_to_f32"]["ms"],
-                band_pass_device_ms=matmul_of["tap_band_pass1"]["device_ms"]),
+                band_pass_device_ms=matmul_of["tap_band_pass1"]["device_ms"],
+                launches_per_ablation_step=ablation_run["routes"]["matmul"][
+                    "launches"]["shift_lerp_matmul"],
+                ablation_pass1_ms=matmul_of[
+                    "matmul_ablation_pass1_bf16_to_bf16"]["ms"],
+                ablation_pass1_device_ms=matmul_of[
+                    "matmul_ablation_pass1_bf16_to_bf16"]["device_ms"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     emit("done", seconds=time.perf_counter() - t_start)

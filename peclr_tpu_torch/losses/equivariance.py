@@ -35,6 +35,13 @@ def translate_projections(points: torch.Tensor, tx: torch.Tensor,
     return points + offset[:, None, :]
 
 
+def translate_projections_exact(points: torch.Tensor, tx: torch.Tensor,
+                                ty: torch.Tensor) -> torch.Tensor:
+    """Shift x/y by (tx, ty) as they are, not scaled by the extent (the
+    reference's translate_encodings2)."""
+    return points + torch.stack([tx, ty], dim=-1)[:, None, :]
+
+
 def _l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return x / torch.sqrt(torch.clamp_min((x * x).sum(dim=-1, keepdim=True),
                                           eps))

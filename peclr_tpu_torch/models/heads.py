@@ -1,5 +1,6 @@
 """Model heads: the SimCLR projection MLP (port of
-peclr_tpu/models/heads.py:19-48) and the z-root refinement MLP (:51-106).
+peclr_tpu/models/heads.py:19-48), the z-root refinement MLP (:51-106) and
+the z-root denoiser (:109-123).
 
 ProjectionHead: Linear(E -> 512, bias) -> BatchNorm1d -> ReLU ->
 Linear(512 -> 128, no bias), a Sequential whose indices 0/1/3 are the
@@ -13,6 +14,9 @@ middle_pip (8) bone with unit length (Iqbal et al. eq 6-7), clamped to
 zroot(1)]).  The MLP is a Sequential whose indices 0/1/3/4/6 are the
 released checkpoint's `zroot_ref.zroot_ref.N` keys; its BatchNorms update
 their running statistics as flax does (models/batchnorm.py).
+
+Denoiser: (21 zrel + 42 2D + 1 scale logit = 64) -> 128 -> 128 -> 1, a
+Sequential of the same indices 0/1/3/4/6 and the same BatchNorm, with ReLU.
 """
 
 from __future__ import annotations
@@ -84,3 +88,19 @@ class ZrootRefineMLP(nn.Module):
             dim=1,
         )
         return zroot + self.zroot_ref(mlp_in)[:, 0]
+
+
+class Denoiser(nn.Sequential):
+    """forward((B, 64)) -> (B, 1) refined z-root; the evaluation takes it
+    through `evaluate(..., predict_zroot=...)`."""
+
+    def __init__(self, input_dim: int = 21 + 42 + 1, hidden_dim: int = 128):
+        super().__init__(
+            nn.Linear(input_dim, hidden_dim),
+            BatchNorm1d(hidden_dim),
+            nn.ReLU(),
+            nn.Linear(hidden_dim, hidden_dim),
+            BatchNorm1d(hidden_dim),
+            nn.ReLU(),
+            nn.Linear(hidden_dim, 1),
+        )

@@ -12,7 +12,7 @@ ResNet) the conversion is a rename of keys: `peclr_to_torchvision`,
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Tuple
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,8 +34,9 @@ def _bn_entries(torch_prefix: str, flax_path: Tuple[str, ...]) -> List[Entry]:
             for tf, coll, ff in _BN_FIELDS]
 
 
-def resnet_mapping(size: str) -> List[Entry]:
-    """Name table of a torchvision-style ResNet encoder (no fc)."""
+def resnet_mapping(size: str, fc_out: Optional[int] = None) -> List[Entry]:
+    """Name table of a torchvision-style ResNet: the encoder alone, or with
+    `fc_out` set the final fc layer too (pose models)."""
     block_kind, stages = RESNET_SPECS[size]
     convs_per_block = 2 if block_kind == "basic" else 3
     entries: List[Entry] = [("conv1.weight", "params", ("conv1", "kernel"),
@@ -54,6 +55,9 @@ def resnet_mapping(size: str) -> List[Entry]:
                                 (f_blk, "downsample_conv", "kernel"), "conv"))
                 entries += _bn_entries(f"{t_blk}.downsample.1",
                                        (f_blk, "downsample_bn"))
+    if fc_out is not None:
+        entries.append(("fc.weight", "params", ("fc", "kernel"), "dense_w"))
+        entries.append(("fc.bias", "params", ("fc", "bias"), "copy"))
     return entries
 
 
@@ -102,6 +106,13 @@ def zroot_mlp_mapping() -> List[Entry]:
         ("6.weight", "params", ("lin3", "kernel"), "dense_w"),
         ("6.bias", "params", ("lin3", "bias"), "copy"),
     ]
+
+
+def resnet_pose_mapping(size: str) -> List[Entry]:
+    """ResNetPose's torchvision keys <-> the reference's ResNetPose flax
+    variables: the encoder's under `encoder`, fc at the top."""
+    return [(tn, coll, fp if tn.startswith("fc.") else ("encoder",) + fp,
+             kind) for tn, coll, fp, kind in resnet_mapping(size, fc_out=64)]
 
 
 def rn25d_mapping(size: str) -> List[Entry]:
@@ -161,6 +172,21 @@ def rn25d_variables_to_state_dict(variables: Mapping, size: str
     """RN25DPose flax variables -> a state dict for the port's RN25DPose
     that loads with `load_state_dict(strict=True)`."""
     return variables_to_state_dict(variables, rn25d_mapping(size))
+
+
+def resnet_pose_variables_to_state_dict(variables: Mapping, size: str
+                                        ) -> Dict[str, torch.Tensor]:
+    """ResNetPose flax variables -> a state dict for the port's ResNetPose
+    that loads with `load_state_dict(strict=True)`."""
+    return variables_to_state_dict(variables, resnet_pose_mapping(size))
+
+
+def denoiser_variables_to_state_dict(variables: Mapping
+                                     ) -> Dict[str, torch.Tensor]:
+    """Denoiser flax variables ({lin1, bn1, lin2, bn2, lin3}) -> a state
+    dict for the port's Denoiser (the z-root MLP's table: the same layers at
+    the same Sequential indices)."""
+    return variables_to_state_dict(variables, zroot_mlp_mapping())
 
 
 def peclr_variables_to_state_dict(variables: Mapping, size: str

@@ -1,5 +1,5 @@
-"""torchvision-shaped ResNet-18/34/50/101/152 (port of
-peclr_tpu/models/resnet.py).
+"""torchvision-shaped ResNet-18/34/50/101/152 and the pose model on it,
+ResNetPose (port of peclr_tpu/models/resnet.py).
 
 Module names follow torchvision (conv1, bn1, layer{i}.{j}.conv{k}/bn{k},
 downsample.0/1, fc), so `state_dict()` keys are the torchvision keys and the
@@ -145,3 +145,19 @@ class ResNetEncoder(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # global average pool == AdaptiveAvgPool2d((1, 1))
         return torch.mean(self.features(x), dim=(2, 3)).float()
+
+
+class ResNetPose(ResNet):
+    """The encoder and a final linear `fc` emitting 21*3 keypoints and one
+    scale logit (port of peclr_tpu/models/resnet.py:265-280, the
+    reference's ResNetModel outside pretraining).
+
+    forward takes (B, H, W, 3) float images, channels last as in the
+    reference, and returns (B, num_outputs); state-dict keys are
+    torchvision's (models/port.py:resnet_pose_variables_to_state_dict)."""
+
+    def __init__(self, size: str = "50", num_outputs: int = 21 * 3 + 1):
+        super().__init__(size, num_outputs)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.permute(0, 3, 1, 2))

@@ -1,21 +1,28 @@
 """Batched augmentation of the PeCLR pretrain step (port of
-peclr_tpu/ops/augment.py:56-389, the recipe's flags).
+peclr_tpu/ops/augment.py, all 11 flags).
 
-The geometric chain rotate ∘ crop ∘ resize collapses into one affine map per
-sample, applied by the two-pass warp (ops/warp_mxu.py); then the cv2-quirk
-colour jitter.  The per-sample parameters that the equivariant loss inverts
-come out beside the views.
+In the reference's order: sobel -> cut-out -> blur -> the geometric chain
+(rotate ∘ crop ∘ resize, one affine map per sample, applied by the warp) ->
+colour jitter -> noise -> colour drop.  The per-sample parameters that the
+equivariant loss inverts come out beside the views.
 
 torch cannot replay jax.random, so each transform is split in two:
-`draw(generator, n, ...)` makes the random parameters, as the dict that the
-reference's `AugmentOutput.params` holds, and `apply(images, joints, draws,
-...)` is deterministic.  `jitter_x`/`jitter_y` in a draw are the negated
-crop-box jitter, -trunc(U[0, 15)): apply places the crop origin at
-max(centre - side - jitter, 0), so the reference's reported jitter
-(centre - side - origin) handed back to apply reproduces its crop exactly.
+`draw(generator, n, ...)` makes the random parameters and `apply(images,
+joints, draws, ...)` is deterministic.  A draw holds the ten keys of the
+reference's `AugmentOutput.params` (PARAM_KEYS) and, for the flags outside
+the recipe that are on, the draws that only `apply` consumes (the
+sobel/cut-out/noise/drop coins, the cut-out's joint, fraction and fill, the
+noise); `apply` reports the ten keys alone.  `jitter_x`/`jitter_y` in a
+draw are the negated crop-box jitter, -trunc(U[0, 15)): apply places the
+crop origin at max(centre - side - jitter, 0), so the reference's reported
+jitter (centre - side - origin) handed back to apply reproduces its crop
+exactly.
 
-Flags outside the recipe (sobel_filter, cut_out, gaussian_blur,
-gaussian_noise, color_drop) are not ported yet and raise.
+The warp's route: "grouped", "matmul" or "nhwc" (ops/warp_mxu.py:ROUTES,
+the two-pass warp and its kernels) or "gather" (ops/warp.py, the
+reference's WARP_BACKEND = "gather", no kernel).  Under sobel, cut-out or
+blur the source turns f32 before the warp, which reads it in its compute
+dtype (bf16 on the card); otherwise it stays uint8.
 """
 
 from __future__ import annotations
@@ -29,11 +36,20 @@ import torch
 from peclr_tpu_torch.config.defaults import AugmentationFlags, AugmentationParams
 from peclr_tpu_torch.geometry.affine import rotation_about_center
 from peclr_tpu_torch.ops import image as im
+from peclr_tpu_torch.ops.warp import affine_warp as affine_warp_gather
+from peclr_tpu_torch.ops.warp_mxu import ROUTES as MXU_ROUTES
 from peclr_tpu_torch.ops.warp_mxu import affine_warp_mxu
 
-#: flags whose ops are not ported yet (ROADMAP queue 1 item 5)
-UNPORTED_FLAGS = ("sobel_filter", "cut_out", "gaussian_blur",
-                  "gaussian_noise", "color_drop")
+#: the warp routes: the two-pass warp's three, then the gather warp
+ROUTES = MXU_ROUTES + ("gather",)
+
+#: the per-sample parameters the reference's AugmentOutput.params holds
+PARAM_KEYS = ("angle", "jitter_x", "jitter_y", "h", "s", "a", "b", "sigma",
+              "blur_flag", "crop_margin_scale")
+
+#: cut-out anchors on one of joints [0, 20): jax.random.randint's upper end
+#: is exclusive, so the reference never picks joint 20
+CUT_OUT_JOINTS = 20
 
 
 @dataclasses.dataclass
@@ -42,14 +58,6 @@ class AugmentOutput:
     joints: torch.Tensor  # (B, 21, 3) transformed 2.5D keypoints
     matrix: torch.Tensor  # (B, 3, 3) source -> dest affine
     params: Dict[str, torch.Tensor]  # per-sample augmentation parameters
-
-
-def _check_flags(flags: AugmentationFlags) -> None:
-    unported = [name for name in UNPORTED_FLAGS if getattr(flags, name)]
-    if unported:
-        raise NotImplementedError(
-            f"augmentation flags {unported} are not ported to "
-            "peclr_tpu_torch yet (ROADMAP queue 1 item 5)")
 
 
 def _warp_window_bounds(src_hw, out_hw, params: AugmentationParams,
@@ -92,14 +100,29 @@ def _crop_box(joints_xy: torch.Tensor, jitter_xy: torch.Tensor,
 
 def draw(generator: torch.Generator, n: int, flags: AugmentationFlags,
          params: AugmentationParams) -> Dict[str, torch.Tensor]:
-    """The random parameters of n samples, on the generator's device."""
-    _check_flags(flags)
+    """The random parameters of n samples, on the generator's device.
+
+    The recipe's draws come first, in the order they always had, so a
+    generator gives the recipe the same tensors whatever else is drawn; the
+    draws of the flags outside the recipe follow, only for the flags that
+    are on.  Coins are Bernoulli(0.5) as 0/1 floats; the cut-out's joint is
+    in [0, 20) and its fill in [0, 255), upper ends exclusive as in
+    jax.random.randint; the noise is a standard normal of the views'
+    shape, scaled by params.noise_std in `apply`."""
     device = generator.device
 
     def uniform(shape, bounds):
         lo, hi = bounds
         u = torch.rand(shape, generator=generator, device=device)
         return lo + (hi - lo) * u
+
+    def coin():
+        return (torch.rand(n, generator=generator, device=device)
+                < 0.5).float()
+
+    def randint(hi):
+        return torch.randint(0, hi, (n,), generator=generator,
+                             device=device).float()
 
     zeros = torch.zeros(n, device=device)
     angle = (torch.floor(uniform(n, (params.min_angle, params.max_angle)))
@@ -108,7 +131,7 @@ def draw(generator: torch.Generator, n: int, flags: AugmentationFlags,
               if flags.crop else torch.zeros(n, 2, device=device))
     margin = (uniform(n, params.crop_margin_range) if flags.random_crop
               else torch.full((n,), params.crop_margin, device=device))
-    return {
+    d = {
         "angle": angle,
         "jitter_x": -jitter[:, 0],
         "jitter_y": -jitter[:, 1],
@@ -120,6 +143,29 @@ def draw(generator: torch.Generator, n: int, flags: AugmentationFlags,
         "blur_flag": zeros,
         "crop_margin_scale": margin,
     }
+    if flags.sobel_filter:
+        d["sobel_flag"] = coin()
+    if flags.cut_out:
+        d["cut_out_flag"] = coin()
+        d["cut_out_joint"] = randint(CUT_OUT_JOINTS)
+        d["cut_out_fraction"] = uniform(n, params.cut_out_fraction)
+        d["cut_out_fill"] = randint(255)
+    if flags.gaussian_blur:
+        d["blur_flag"] = coin()
+    if flags.gaussian_noise:
+        out_w, out_h = params.resize_shape
+        d["noise_flag"] = coin()
+        d["noise"] = torch.randn((n, out_h, out_w, 3), generator=generator,
+                                 device=device)
+    if flags.color_drop:
+        d["drop_flag"] = coin()
+    return d
+
+
+def _where(flag: torch.Tensor, on: torch.Tensor,
+           off: torch.Tensor) -> torch.Tensor:
+    """Per sample, `on` where the 0/1 coin flag (B,) is 1, else `off`."""
+    return torch.where(flag[:, None, None, None] > 0, on, off)
 
 
 @torch.no_grad()
@@ -133,13 +179,31 @@ def apply(images_u8: torch.Tensor, joints25d: torch.Tensor,
     images_u8 (B, H, W, 3) uint8 canvases; joints25d (B, 21, 3) keypoints
     in source pixels (z untouched).  force_crop / zero_jitter: a crop always
     runs for contrastive samples, with its jitter pinned to 0 when the crop
-    flag is off.  Views come out at params.resize_shape, in [0, 1]."""
-    _check_flags(flags)
+    flag is off.  `route` is one of ROUTES.  Views come out at
+    params.resize_shape, in [0, 1]; `params` of the output holds
+    PARAM_KEYS."""
+    if route not in ROUTES:
+        raise ValueError(f"route={route!r}, want one of {ROUTES}")
     b, src_h, src_w, _ = images_u8.shape
     out_w, out_h = params.resize_shape
     device = images_u8.device
     d = {k: v.to(device=device, dtype=torch.float32) for k, v in draws.items()}
     joints = joints25d.to(torch.float32)
+    # stay uint8 until an op before the warp needs floats: the warp's first
+    # pass then reads a quarter of the bytes
+    x = images_u8
+    if flags.sobel_filter or flags.cut_out or flags.gaussian_blur:
+        x = images_u8.to(torch.float32)
+
+    if flags.sobel_filter:
+        x = _where(d["sobel_flag"], im.sobel_filter(x, params.sobel_kernel), x)
+    if flags.cut_out:
+        joint = d["cut_out_joint"].long()
+        anchor = joints[torch.arange(b, device=device), joint, :2]
+        cut = im.cutout(x, anchor, d["cut_out_fraction"], d["cut_out_fill"])
+        x = _where(d["cut_out_flag"], cut, x)
+    if flags.gaussian_blur:
+        x = _where(d["blur_flag"], im.gaussian_blur(x, d["sigma"]), x)
 
     # rotation about the truncated keypoint centroid
     angle = d["angle"]
@@ -174,12 +238,17 @@ def apply(images_u8: torch.Tensor, joints25d: torch.Tensor,
     scale = torch.stack([fw, fh, torch.ones_like(fw)], dim=-1)[:, :, None]
     matrix = (rot + shift) * scale
 
+    # the windows are sized before the route is picked, as in the reference,
+    # so a range beyond 80° raises on the gather route too
     sx, sy = _warp_window_bounds((src_h, src_w), (out_h, out_w), params,
                                  flags.rotate)
-    x = affine_warp_mxu(images_u8, matrix, (out_h, out_w),
-                        interp=params.interpolation, max_scale_x=sx,
-                        max_scale_y=sy, route=route,
-                        compute_dtype=compute_dtype)
+    if route == "gather":
+        x = affine_warp_gather(x, matrix, (out_h, out_w))
+    else:
+        x = affine_warp_mxu(x, matrix, (out_h, out_w),
+                            interp=params.interpolation, max_scale_x=sx,
+                            max_scale_y=sy, route=route,
+                            compute_dtype=compute_dtype)
     joints_xy = torch.stack([
         (joints_rot_xy[..., 0] - origin[:, None, 0]) * fw[:, None],
         (joints_rot_xy[..., 1] - origin[:, None, 1]) * fh[:, None],
@@ -188,7 +257,13 @@ def apply(images_u8: torch.Tensor, joints25d: torch.Tensor,
 
     if flags.color_jitter:
         x = im.color_jitter(x, d["h"], d["s"], d["a"], d["b"])
-    out_params = dict(d, angle=angle, jitter_x=reported[:, 0],
+    if flags.gaussian_noise:
+        x = _where(d["noise_flag"],
+                   im.gaussian_noise(x, d["noise"], params.noise_std), x)
+    if flags.color_drop:
+        x = _where(d["drop_flag"], im.grayscale(x), x)
+    out_params = {k: d[k] for k in PARAM_KEYS}
+    out_params.update(angle=angle, jitter_x=reported[:, 0],
                       jitter_y=reported[:, 1], crop_margin_scale=margin)
     return AugmentOutput(images=x / 255.0, joints=joints, matrix=matrix,
                          params=out_params)
@@ -223,3 +298,27 @@ def augment_pair(generator: Optional[torch.Generator], images_u8: torch.Tensor,
                              params={k: v[sl] for k, v in both.params.items()})
 
     return half(0), half(1)
+
+
+def relative_params(params1: Dict[str, torch.Tensor],
+                    params2: Dict[str, torch.Tensor],
+                    flags: AugmentationFlags) -> Dict[str, torch.Tensor]:
+    """The relative transform between two views, the pairwise experiment's
+    regression targets: the crop jitter's difference (B, 2), the colour
+    factors' differences (B, 4), the blur flags' XOR (B, 1) and the
+    rotation's difference mod 360 (B, 1), each where its flag is on."""
+    rel: Dict[str, torch.Tensor] = {}
+    if flags.crop:
+        rel["jitter"] = torch.stack(
+            [params1["jitter_x"] - params2["jitter_x"],
+             params1["jitter_y"] - params2["jitter_y"]], dim=-1)
+    if flags.color_jitter:
+        rel["color_jitter"] = torch.stack(
+            [params1[k] - params2[k] for k in ("h", "s", "a", "b")], dim=-1)
+    if flags.gaussian_blur:
+        rel["blur"] = torch.abs(params1["blur_flag"]
+                                - params2["blur_flag"])[:, None]
+    if flags.rotate:
+        rel["rotation"] = torch.remainder(params1["angle"] - params2["angle"],
+                                          360.0)[:, None]
+    return rel

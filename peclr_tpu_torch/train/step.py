@@ -83,7 +83,8 @@ def make_peclr_train_step(
     them: a list of accum dicts of 2B parameters each (ops/augment.py:draw),
     e.g. those the reference drew.  The step updates state.model and
     state.optimizer in place and advances state.step.  `warp_route` picks
-    the warp's kernels (ops/warp_mxu.py:ROUTES).  metrics: the mean loss and,
+    the warp (ops/augment.py:ROUTES: the two-pass warp's kernels, or the
+    gather warp, which launches none).  metrics: the mean loss and,
     with_stats, the last microbatch's projection_stats, as the reference
     reports (the trainer's hot path runs without them).  Nothing in the
     step waits on the card: metrics stay device tensors."""

@@ -7,6 +7,9 @@ requirements:
     python -m pytest tests/test_torch_cuda.py -m cuda
 """
 
+import functools
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -478,3 +481,96 @@ def test_finetune_cli_one_epoch_on_the_card(card, tmp_path, monkeypatch):
     assert records[0]["steps"] == 2 and np.isfinite(records[0]["loss"])
     assert os.path.exists(os.path.join(str(tmp_path / "ft"), "checkpoints",
                                        "epoch_0", "state.pt"))
+
+
+#: per warp route: the module attribute its kernel is reached through, and
+#: the kernel's plain version (the same arguments)
+_ROUTE_KERNELS = {
+    "grouped": ("peclr_tpu_torch.ops.warp_mxu", "fused_shift_lerp_grouped",
+                shift_lerp_grouped_plain),
+    "nhwc": ("peclr_tpu_torch.ops.shift_lerp", "fused_shift_lerp",
+             shift_lerp_flat_plain),
+    "matmul": ("peclr_tpu_torch.ops.warp_mxu", "fused_shift_lerp_matmul",
+               shift_lerp_matmul_plain),
+}
+
+
+def _all_flags():
+    from peclr_tpu_torch.config.defaults import AugmentationFlags
+
+    return AugmentationFlags(rotate=True, crop=True, color_jitter=True,
+                             resize=True, random_crop=True, sobel_filter=True,
+                             cut_out=True, gaussian_blur=True,
+                             gaussian_noise=True, color_drop=True)
+
+
+@pytest.mark.parametrize("route", ["grouped", "nhwc", "matmul"])
+def test_bf16_pass1_sources_match_plain(card, route, monkeypatch):
+    """Under sobel, cut-out and blur the warp's first pass reads bf16
+    sources (the f32 canvases in the compute dtype): captured from `apply`
+    with all flags (16 canvases, 224 -> 128), kernels 1 and 3 bit-exact
+    against their plain versions, kernel 4 within its bf16 bound of 1.0."""
+    from peclr_tpu_torch.config.defaults import AugmentationParams
+    from peclr_tpu_torch.ops import augment
+    from peclr_tpu_torch.train.recipe import synthetic_pretrain_batch
+
+    module_name, name, plain = _ROUTE_KERNELS[route]
+    module = importlib.import_module(module_name)
+    kernel = getattr(module, name)
+    calls = []
+
+    def capture(*args, **kw):
+        calls.append((args, kw))
+        return kernel(*args, **kw)
+
+    # the flat kernel counts its launches on its module's name
+    functools.update_wrapper(capture, kernel)
+    monkeypatch.setattr(module, name, capture)
+    batch = synthetic_pretrain_batch(16, canvas=224, seed=3, device=card)
+    flags, params = _all_flags(), AugmentationParams()
+    draws = augment.draw(torch.Generator(card).manual_seed(3), 16, flags,
+                         params)
+    out = augment.apply(batch["image"], batch["joints25d"], draws, flags,
+                        params, route=route)
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    assert torch.isfinite(out.images).all()
+    assert len(calls) == 2
+    args, kw = calls[0]
+    assert args[0].dtype == torch.bfloat16
+    got, ref = kernel(*args, **kw), plain(*args, **kw)
+    torch.cuda.synchronize()
+    if route == "matmul":
+        assert (got.float() - ref.float()).abs().max().item() <= 1.0
+    else:
+        assert torch.equal(got, ref)
+        assert kernel.last_path == "vec16"
+
+
+@pytest.mark.parametrize("route", ["grouped", "gather"])
+def test_all_flags_microbatch_on_the_card(card, route):
+    """One RN18 microbatch with all flags (64 -> 32 canvases) on the card,
+    in bf16: a finite loss; kernel 1 launched twice on the grouped route,
+    no kernel on the gather route."""
+    from peclr_tpu_torch.config.defaults import AugmentationParams
+    from peclr_tpu_torch.train.recipe import (
+        build_pretrain_state,
+        synthetic_pretrain_batch,
+    )
+    from peclr_tpu_torch.train.step import make_peclr_train_step
+
+    model, state, opt = build_pretrain_state("18", batch=4, accum=1,
+                                             device=card)
+    step = make_peclr_train_step(model, opt, _all_flags(),
+                                 AugmentationParams(resize_shape=(32, 32)),
+                                 accum=1, warp_route=route)
+    batch = synthetic_pretrain_batch(4, canvas=64, seed=0, device=card)
+    kernels = (fused_shift_lerp_grouped, fused_shift_lerp,
+               fused_shift_lerp_matmul)
+    before = [k.launches for k in kernels]
+    state, metrics = step(state, batch, torch.Generator(card).manual_seed(0))
+    torch.cuda.synchronize()
+    launched = [k.launches - b for k, b in zip(kernels, before)]
+    assert launched == ([2, 0, 0] if route == "grouped" else [0, 0, 0])
+    assert torch.isfinite(metrics["loss"]).item()
+    assert state.step == 1

@@ -7,7 +7,9 @@ augmentation parameters the reference drew: K', the labels, the recreated
 3D and the procrustes targets within 1e-4 (tests/test_torch_augment.py's
 tolerance for `apply`), the images as that file holds them (the colour
 jitter's floors).  `evaluate` runs on both sides over the same batches with
-the same draws and the same predictions: each result within 1e-5.
+the same draws and the same predictions: each result within 1e-5, also
+with a Denoiser (the reference's flax one and the port's, from the same
+weights) supplying the z-root.
 """
 
 import jax
@@ -22,6 +24,7 @@ from peclr_tpu.data.freihand import FreihandSource as JaxSource
 from peclr_tpu.data.pipeline import HostPipeline as JaxPipeline
 from peclr_tpu.eval import evaluate as jax_evaluate
 from peclr_tpu.losses import supervised as jax_supervised
+from peclr_tpu.models.heads import Denoiser as JaxDenoiser
 from peclr_tpu.ops.augment import augment_batch
 from peclr_tpu_torch.config.defaults import AugmentationFlags, AugmentationParams
 from peclr_tpu_torch.data.freihand import FreihandSource
@@ -29,6 +32,8 @@ from peclr_tpu_torch.data.pipeline import HostPipeline
 from peclr_tpu_torch.data.synthetic import generate_freihand_like
 from peclr_tpu_torch.eval.evaluate import evaluate, supervised_sample_batch
 from peclr_tpu_torch.losses import supervised
+from peclr_tpu_torch.models import Denoiser
+from peclr_tpu_torch.models.port import denoiser_variables_to_state_dict
 from peclr_tpu_torch.ops.image import IMAGENET_MEAN, IMAGENET_STD
 
 B = 8
@@ -164,15 +169,10 @@ class _Replay:
         return self.wrap(self.predictions.pop(0))
 
 
-@pytest.mark.parametrize("use_palm,with_zroot", [(False, False),
-                                                 (True, False),
-                                                 (False, True)])
-def test_evaluate_matches_reference(fh_root, use_palm, with_zroot):
-    """Two batches, the eval CLI's flags (crop, resize): predictions are the
-    reference's labels plus seeded noise (a few pixels, a few tenths of
-    relative depth); the z-root override, where given, is a function of the
-    prediction."""
-    port_pipe, ref_pipe = _pipelines(fh_root)
+def _reference_batches(ref_pipe, use_palm):
+    """The draws and the noisy predictions of two batches, the eval CLI's
+    flags (crop, resize): predictions are the reference's labels plus seeded
+    noise (a few pixels, a few tenths of relative depth)."""
     jflags = JaxFlags(crop=True, resize=True)
     jparams = JaxParams(resize_shape=(64, 64))
     rng = np.random.default_rng(7)
@@ -188,22 +188,72 @@ def test_evaluate_matches_reference(fh_root, use_palm, with_zroot):
             k, batch, jflags, jparams, use_palm=use_palm)["joints"])
         noise = rng.normal(size=labels.shape) * np.array([2.0, 2.0, 0.2])
         predictions.append((labels + noise).astype(np.float32))
+    return draws, predictions
+
+
+def _check_evaluate(fh_root, use_palm, port_zroot, ref_zroot):
+    port_pipe, ref_pipe = _pipelines(fh_root)
+    jflags = JaxFlags(crop=True, resize=True)
+    jparams = JaxParams(resize_shape=(64, 64))
+    draws, predictions = _reference_batches(ref_pipe, use_palm)
     for got_raw, ref_raw in zip(port_pipe.batches(2), ref_pipe.batches(2)):
         for name in ref_raw:
             np.testing.assert_array_equal(got_raw[name], ref_raw[name])
 
-    def zroot(pred, K):
-        return 6.0 + 0.01 * pred[:, 0, 0]
-
-    kw = dict(num_batches=2, use_palm=use_palm,
-              predict_zroot=zroot if with_zroot else None)
+    kw = dict(num_batches=2, use_palm=use_palm)
     ref = jax_evaluate.evaluate(_Replay(predictions, jnp.asarray), ref_pipe,
-                                jflags, jparams, **kw)
+                                jflags, jparams, predict_zroot=ref_zroot, **kw)
     got = evaluate(_Replay(predictions, torch.from_numpy), port_pipe,
                    AugmentationFlags(crop=True, resize=True),
                    AugmentationParams(resize_shape=(64, 64)), device="cpu",
-                   draws=draws, **kw)
+                   draws=draws, predict_zroot=port_zroot, **kw)
     assert set(got) == set(ref) and len(got) == 9
     for name, value in ref.items():
         assert np.isfinite(got[name]), name
         assert got[name] == pytest.approx(value, rel=1e-5, abs=1e-5), name
+
+
+@pytest.mark.parametrize("use_palm,with_zroot", [(False, False),
+                                                 (True, False),
+                                                 (False, True)])
+def test_evaluate_matches_reference(fh_root, use_palm, with_zroot):
+    """The z-root override, where given, is a function of the prediction."""
+    def zroot(pred, K):
+        return 6.0 + 0.01 * pred[:, 0, 0]
+
+    _check_evaluate(fh_root, use_palm, zroot if with_zroot else None,
+                    zroot if with_zroot else None)
+
+
+def _denoiser_input(pred, K):
+    """(N, 64) from numpy (N, 21, 3) predictions and (N, 3, 3) K: the 21
+    relative depths, the 42 pixel coords over 100 and the log focal length,
+    the Denoiser's 21 + 42 + 1 layout."""
+    n = pred.shape[0]
+    return np.concatenate([pred[:, :, 2], pred[:, :, :2].reshape(n, 42) / 100.0,
+                           np.log(K[:, 0, 0])[:, None]], axis=1)
+
+
+def test_evaluate_with_a_denoiser_matches_reference(fh_root):
+    """A Denoiser-backed predict_zroot on each side, in eval mode, from the
+    same seeded weights: z-root = 6 + the Denoiser's output."""
+    from peclr_tpu_torch.data.synthetic import _seeded_variables
+    from peclr_tpu_torch.models.port import zroot_mlp_mapping
+
+    shapes = {k: tuple(v.shape) for k, v in Denoiser().state_dict().items()}
+    variables = _seeded_variables(shapes, zroot_mlp_mapping(), 9, last_bn="-")
+    port = Denoiser()
+    port.load_state_dict(denoiser_variables_to_state_dict(variables),
+                         strict=True)
+    port.eval()
+
+    def port_zroot(pred, K):
+        x = torch.from_numpy(_denoiser_input(pred.numpy(), K.numpy()))
+        with torch.no_grad():
+            return 6.0 + port(x)[:, 0]
+
+    def ref_zroot(pred, K):
+        x = jnp.asarray(_denoiser_input(np.asarray(pred), np.asarray(K)))
+        return 6.0 + JaxDenoiser().apply(variables, x, train=False)[:, 0]
+
+    _check_evaluate(fh_root, False, port_zroot, ref_zroot)

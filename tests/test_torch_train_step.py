@@ -29,6 +29,9 @@ changes.  Tolerances, and why:
     determined by the gradient's digits.
 """
 
+import dataclasses
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -56,10 +59,16 @@ from peclr_tpu_torch.models.port import (
     peclr_mapping,
     peclr_variables_to_state_dict,
 )
+from peclr_tpu_torch.ops.image import IMAGENET_STD
+from peclr_tpu_torch.train import step as step_module
 from peclr_tpu_torch.train.optimizer import build_optimizer
 from peclr_tpu_torch.train.recipe import synthetic_pretrain_batch
 from peclr_tpu_torch.train.state import TrainState
 from peclr_tpu_torch.train.step import make_peclr_train_step
+from tests.test_torch_augment import _assert_images_close
+
+#: ImageNet std: normalised views times it are back on the [0, 1] scale
+_STD = np.asarray(IMAGENET_STD, np.float32)
 
 MB, ACCUM, CANVAS, VIEW = 4, 2, 64, 32
 OPT = dict(base_lr=1e-4, batch_size=MB, accum=ACCUM, steps_per_epoch=4,
@@ -75,12 +84,15 @@ def _record_grads():
 
 
 def _op_by_op_augment_pair(key, images, joints, flags, params,
-                           normalize=True):
+                           normalize=True, views_out=None):
     """The reference's augment_pair, run op by op from inside its jitted
-    step (module docstring)."""
+    step (module docstring); each call's two views are appended to
+    `views_out` where given."""
     def host(k, im, jt):
         v1, v2 = jax_augment_pair(jnp.asarray(k), jnp.asarray(im),
                                   jnp.asarray(jt), flags, params, normalize)
+        if views_out is not None:
+            views_out.append((np.asarray(v1.images), np.asarray(v2.images)))
         return tuple((np.asarray(v.images), np.asarray(v.joints),
                       np.asarray(v.matrix),
                       {n: np.asarray(p) for n, p in v.params.items()})
@@ -94,20 +106,24 @@ def _op_by_op_augment_pair(key, images, joints, flags, params,
     return tuple(AugmentOutput(*view) for view in views)
 
 
-def _reference_draws(key, batch):
+def _reference_draws(key, batch, jflags, extra_draws=None):
     """The parameters the reference's step draws: split(key, accum), then
-    augment_pair on each microbatch; as 2B-sample draws for the port."""
+    augment_pair on each microbatch; as 2B-sample draws for the port.
+    `extra_draws(key, n, params)`, where given, adds the draws of the flags
+    outside the recipe that augment_pair makes from each microbatch's key."""
     keys = jax.random.split(key, ACCUM)
+    params = JaxParams(resize_shape=(VIEW, VIEW))
     draws = []
     for i in range(ACCUM):
         sl = slice(i * MB, (i + 1) * MB)
         v1, v2 = jax_augment_pair(keys[i], jnp.asarray(batch["image"][sl]),
                                   jnp.asarray(batch["joints25d"][sl]),
-                                  jax_flags(), JaxParams(resize_shape=(VIEW,
-                                                                       VIEW)))
-        draws.append({k: torch.from_numpy(np.concatenate(
+                                  jflags, params)
+        extra = {} if extra_draws is None else extra_draws(keys[i], 2 * MB,
+                                                           params)
+        draws.append({**extra, **{k: torch.from_numpy(np.concatenate(
             [np.asarray(v1.params[k]), np.asarray(v2.params[k])]))
-            for k in v1.params})
+            for k in v1.params}})
     return draws
 
 
@@ -128,17 +144,42 @@ def _as_torch_layout(name, value):
     return value
 
 
-@pytest.fixture(scope="module")
-def runs():
+def op_by_op_runs(jflags, flags, extra_draws=None, share_views=False):
+    """_run_both with the reference's step computing its views op by op.
+
+    share_views: the port's step computes its views and checks them
+    against the reference's at tests/test_torch_augment.py's image
+    tolerance, then trains on the reference's, so that a colour-jitter floor
+    a rounding apart does not move the tiny RN18's gradients."""
     patch = pytest.MonkeyPatch()
-    patch.setattr(jax_step_module, "augment_pair", _op_by_op_augment_pair)
+    views = []
+    patch.setattr(jax_step_module, "augment_pair", functools.partial(
+        _op_by_op_augment_pair, views_out=views))
+    if share_views:
+        real = step_module.augment_pair
+
+        def port_pair(*args, **kw):
+            pair = real(*args, **kw)
+            out = []
+            for got, ref in zip(pair, views.pop(0)):
+                _assert_images_close(got.images.numpy() * _STD, ref * _STD)
+                out.append(dataclasses.replace(
+                    got, images=torch.from_numpy(np.array(ref))))
+            return tuple(out)
+
+        patch.setattr(step_module, "augment_pair", port_pair)
     try:
-        yield _run_both()
+        return _run_both(jflags, flags, extra_draws)
     finally:
         patch.undo()
 
 
-def _run_both():
+@pytest.fixture(scope="module")
+def runs():
+    return op_by_op_runs(jax_flags(), peclr_pretrain_flags())
+
+
+def _run_both(jflags, flags, extra_draws=None):
     variables = seeded_peclr_variables("18", seed=0)
     batch = {k: v.numpy() for k, v in synthetic_pretrain_batch(
         MB * ACCUM, canvas=CANVAS, seed=0, device="cpu").items()}
@@ -148,7 +189,7 @@ def _run_both():
     tx = optax.chain(_record_grads(), tx)
     jax_state = JaxState.create(jax.tree_util.tree_map(jnp.asarray, variables),
                                 tx)
-    jax_step = jax_make_step(model, tx, jax_flags(),
+    jax_step = jax_make_step(model, tx, jflags,
                              JaxParams(resize_shape=(VIEW, VIEW)),
                              accum=ACCUM, donate=False)
 
@@ -157,7 +198,7 @@ def _run_both():
                          strict=True)
     opt, _ = build_optimizer(port, **OPT)
     state = TrainState(port, opt)
-    step = make_peclr_train_step(port, opt, peclr_pretrain_flags(),
+    step = make_peclr_train_step(port, opt, flags,
                                  AugmentationParams(resize_shape=(VIEW, VIEW)),
                                  accum=ACCUM)
     torch_batch = {k: torch.from_numpy(v) for k, v in batch.items()}
@@ -167,7 +208,8 @@ def _run_both():
         key = jax.random.PRNGKey(10 + s)
         jax_state, jax_metrics = jax_step(jax_state, batch, key)
         state, metrics = step(state, torch_batch, None,
-                              draws=_reference_draws(key, batch))
+                              draws=_reference_draws(key, batch, jflags,
+                                                     extra_draws))
         grads = {n: p.grad.numpy().copy() for n, p in port.named_parameters()}
         out.append(dict(
             loss=(metrics["loss"].item(), float(jax_metrics["loss"])),
@@ -181,15 +223,13 @@ def _run_both():
     return variables, out, state
 
 
-@pytest.mark.parametrize("s", [0, 1])
-def test_loss_matches(runs, s):
+def check_loss(runs, s):
     got, ref = runs[1][s]["loss"]
     assert np.isfinite(got)
     np.testing.assert_allclose(got, ref, rtol=1e-4)
 
 
-@pytest.mark.parametrize("s", [0, 1])
-def test_grads_match(runs, s):
+def check_grads(runs, s):
     """Per parameter, 1e-3 of its gradient's norm; the bias of the head's
     first Linear feeds a BatchNorm, so its gradient is 0 up to rounding
     (1e-8) and is held to 1e-6 of the gradients' largest norm instead."""
@@ -203,8 +243,7 @@ def test_grads_match(runs, s):
             name, err, np.linalg.norm(r))
 
 
-@pytest.mark.parametrize("s", [0, 1])
-def test_batch_stats_match(runs, s):
+def check_batch_stats(runs, s):
     params, _ = runs[1][s]["params"]
     _, ref = runs[1][s]["stats"]
     for name, r in ref.items():
@@ -213,7 +252,7 @@ def test_batch_stats_match(runs, s):
                                    err_msg=name)
 
 
-def test_params_after_each_update(runs):
+def check_params_after_each_update(runs):
     variables, out, state = runs
     initial = peclr_variables_to_state_dict(variables, "18")
     lr_step2 = 1e-4 * np.sqrt(MB * ACCUM) * 0.5  # warmup: half the peak
@@ -240,7 +279,7 @@ def test_params_after_each_update(runs):
     assert state.step == 2 and state.optimizer.count == 2
 
 
-def test_projection_stats_match(runs):
+def check_projection_stats(runs):
     """The last microbatch's stats, as the reference reports them; the
     median averages the two middle values, as jnp.median does.  1e-4 of
     the projections' scale (the forward's f32 summation order)."""
@@ -250,3 +289,26 @@ def test_projection_stats_match(runs):
     for key, value in ref.items():
         np.testing.assert_allclose(metrics[key].item(), float(value),
                                    rtol=0, atol=1e-4 * scale, err_msg=key)
+
+
+@pytest.mark.parametrize("s", [0, 1])
+def test_loss_matches(runs, s):
+    check_loss(runs, s)
+
+
+@pytest.mark.parametrize("s", [0, 1])
+def test_grads_match(runs, s):
+    check_grads(runs, s)
+
+
+@pytest.mark.parametrize("s", [0, 1])
+def test_batch_stats_match(runs, s):
+    check_batch_stats(runs, s)
+
+
+def test_params_after_each_update(runs):
+    check_params_after_each_update(runs)
+
+
+def test_projection_stats_match(runs):
+    check_projection_stats(runs)

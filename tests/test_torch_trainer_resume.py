@@ -1,16 +1,19 @@
 """The port's trainer on the CPU: interrupting at an epoch boundary and
-resuming is bit-equal to training straight through; the projection
+resuming is bit-equal to training straight through, with the recipe's
+flags and with all ten augmentation flags the CLI takes; the projection
 statistics run only on logged steps; `experiment_type="simclr"` drops the
 inverse transforms; and the pretraining CLI runs end to end."""
 
 import json
 import os
 
+import numpy as np
 import pytest
 import torch
 
 from peclr_tpu_torch import constants
 from peclr_tpu_torch.config.defaults import (
+    AugmentationFlags,
     AugmentationParams,
     ModelConfig,
     TrainConfig,
@@ -46,24 +49,35 @@ def paths(tmp_path, monkeypatch):
     return tmp_path
 
 
-def _cfgs(**model_kw):
+#: every augmentation flag the CLI takes but flip (a no-op)
+ALL_FLAGS = ("--rotate", "--crop", "--color_jitter", "--resize",
+             "--random_crop", "--sobel_filter", "--cut_out",
+             "--gaussian_blur", "--gaussian_noise", "--color_drop")
+
+
+def _all_flags():
+    return AugmentationFlags(**{f[2:]: True for f in ALL_FLAGS})
+
+
+def _cfgs(flags=None, **model_kw):
+    augmentation = (("crop", "rotate", "color_jitter", "resize")
+                    if flags is None else tuple(flags.active()))
     train_cfg = TrainConfig(
         batch_size=8, accumulate_grad_batches=2, epochs=3, seed=5,
-        precision="f32", augmentation_flags=peclr_pretrain_flags(),
+        precision="f32", augmentation_flags=flags or peclr_pretrain_flags(),
         augmentation_params=AugmentationParams(resize_shape=(32, 32)),
     )
     model_cfg = ModelConfig(resnet_size="18", lr=5e-4, warmup_epochs=1,
-                            augmentation=("crop", "rotate", "color_jitter",
-                                          "resize"), **model_kw)
+                            augmentation=augmentation, **model_kw)
     return train_cfg, model_cfg
 
 
-def _trainer(fh_root, workdir, **kw):
+def _trainer(fh_root, workdir, flags=None, **kw):
     src = FreihandSource(fh_root, "train", seed=5, train_ratio=0.75)
     pipe = HostPipeline([src], batch_size=16, canvas=64, seed=5,
                         num_threads=2)
     model_kw = kw.pop("model_kw", {})
-    return loop.PeCLRTrainer(*_cfgs(**model_kw), pipe, device="cpu",
+    return loop.PeCLRTrainer(*_cfgs(flags, **model_kw), pipe, device="cpu",
                              workdir=str(workdir), log_images=False, **kw)
 
 
@@ -75,19 +89,19 @@ def test_stream_seed_formula():
     assert len({loop.stream_seed(a, b) for a in range(4) for b in range(4)}) == 16
 
 
-def test_resume_trajectory_equivalence(fh_root, paths):
+def _check_resume(fh_root, paths, flags=None):
     """3 epochs straight against 1 epoch, a new trainer auto-resumed, 2 more:
     every tensor of the model's and the optimizer's state is bit-equal,
     and so are the step and the logged epoch losses."""
-    full = _trainer(fh_root, paths / "full", experiment_name="traj_full",
-                    auto_resume=False)
+    full = _trainer(fh_root, paths / "full", flags,
+                    experiment_name="traj_full", auto_resume=False)
     assert full.steps_per_epoch == 3  # 48 samples, 16 a step (8 x 2)
     full.fit(epochs=3)
 
     work = paths / "interrupted"
-    first = _trainer(fh_root, work, experiment_name="traj_a")
+    first = _trainer(fh_root, work, flags, experiment_name="traj_a")
     first.fit(epochs=1)
-    resumed = _trainer(fh_root, work, experiment_name="traj_b")
+    resumed = _trainer(fh_root, work, flags, experiment_name="traj_b")
     assert resumed.start_epoch == 1
     resumed.fit(epochs=3)
 
@@ -110,6 +124,16 @@ def test_resume_trajectory_equivalence(fh_root, paths):
 
     assert losses(resumed) == {e: losses(full)[e] for e in (1, 2)}
     assert losses(first)[0] == losses(full)[0]
+
+
+def test_resume_trajectory_equivalence(fh_root, paths):
+    _check_resume(fh_root, paths)
+
+
+def test_resume_trajectory_equivalence_all_flags(fh_root, paths):
+    """The same with every flag on: the draws of the flags outside the
+    recipe come from the same per-step generator, after the recipe's."""
+    _check_resume(fh_root, paths, _all_flags())
 
 
 def test_stats_gated_on_log_cadence(fh_root, paths):
@@ -187,3 +211,23 @@ def test_train_cli_on_the_cpu(fh_root, paths, monkeypatch):
     assert again[0]["loss"] == records[2]["loss"]  # epoch 1, bit for bit
     with pytest.raises(SystemExit, match="experiment_key"):
         cli.main(argv + ["-checkpoint", "epoch_0"])
+
+
+def test_train_cli_with_every_flag_on_the_cpu(fh_root, paths, monkeypatch):
+    """The CLI with all ten flags for an epoch: the flags in the configs,
+    finite training and validation losses."""
+    from peclr_tpu_torch.cli import train as cli
+
+    monkeypatch.setattr(constants, "FREIHAND_DATA", fh_root)
+    argv = list(ALL_FLAGS) + [
+        "-batch_size", "8", "-epochs", "1", "-resnet_size", "18",
+        "-train_ratio", "0.75", "-sources", "freihand", "-optimizer", "adam",
+        "-canvas", "64", "-view_size", "32", "-num_workers", "2",
+        "--device", "cpu"]
+    trainer = cli.main(argv)
+    assert trainer.train_cfg.augmentation_flags == _all_flags()
+    assert set(trainer.model_cfg.augmentation) == {f[2:] for f in ALL_FLAGS}
+    with open(os.path.join(trainer.tracker.dir, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    assert [r["context"] for r in records] == ["train", "val"]
+    assert all(np.isfinite(r["loss"]) for r in records)
