@@ -96,7 +96,27 @@ one JSON line that carries the card's name and power limit:
               The kernel phase holds the first pass of this path, whose
               sources are bf16 (the f32 canvases of sobel, cut-out and blur
               in the warp's compute dtype), for kernels 1, 3 and 4
- 11. kernels  one line listing every ported kernel
+ 11. ddp      data-parallel pretraining: two ranks on the card over gloo
+              (spawned; NCCL refuses two ranks on one card), first the RN18
+              dry-run shape in f32 (loss and BatchNorm running statistics
+              within 1e-3 of one process on the card, same weights and
+              draws), then the RN50 recipe step (global 128 x 16, 64 rows a
+              rank, bf16, grouped route; first-step loss within 1e-2 of
+              phase 7's), each with the ranks' states equal to the bit and
+              kernel 1 launched 2 x accum times a step on each rank, no
+              other kernel; then the pretraining CLI under
+              torch.distributed.run with one rank and NCCL at the trainer
+              phase's argv for one epoch more (this script re-entered with
+              --ddp-cli): per epoch the losses, img/s, ms, wait, peak
+              memory and launches (kernel 1: 2 x 16 a step + 2 a
+              validation batch), epoch 0's loss within 1e-2 of the trainer
+              phase's, rank 0's one checkpoint write an epoch; the last
+              epoch profiled (busy share, top host ops, all-reduce calls,
+              NCCL kernels); the host and device ms of an all-reduce and of
+              a BatchNorm across ranks against a plain one; then
+              dryrun_multichip(2) on the card.  The two-rank times share
+              one card: not speed
+ 12. kernels  one line listing every ported kernel
 Then the card's nvidia-smi line, and last the contract line
 {"ok": true, "device": {...}}.  No weights are read (they are made from a
 seed); the only data read is the trainer's fixture.
@@ -161,6 +181,11 @@ ABLATION_ARGV = ["--" + f for f in ABLATION_FLAGS] + [
     "-accumulate_grad_batches", str(ACCUM), "-resnet_size", "50",
     "-optimizer", "LARS", "-train_ratio", "0.75", "-num_workers", "8",
     "-save_top_k", "1", "-epochs", "2"]
+#: seconds the ddp phase's CLI run under torch.distributed.run may take
+DDP_CLI_TIMEOUT_S = 600
+#: the ddp phase's CLI runs the trainer phase's argv for one epoch more,
+#: this last one profiled, so that epochs 0 and 1 compare unprofiled
+DDP_CLI_PROFILED_EPOCH = 2
 CARD = ""
 
 
@@ -912,25 +937,19 @@ def microbatch_breakdown(torch, model, opt, batch, draws, route):
     return {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
 
 
-def profile_step(torch, step, state, batch, gen):
-    """One step under torch.profiler: the union of the card's kernel
-    intervals against the span of the step's trace (the device's busy
-    share), and the kernels that take the most device time.  The profiler
-    slows the host, so the span is longer than an unprofiled step."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        state, metrics = step(state, batch, gen)
-        metrics["loss"].item()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+def trace_summary(torch, prof, wall_ms: float) -> dict:
+    """What a torch.profiler capture of `wall_ms` shows: the union of the
+    card's kernel intervals against the span (the device's busy share), the
+    kernels that take the most device time, the host's ops that take the
+    most self time, and the collectives (c10d's all-reduce calls, their
+    host ms; NCCL's kernels and device ms)."""
+    # the card's kernels and copies; record_function ranges (DDP's forward)
+    # are on the device's timeline too
     kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
     if not kernels:
-        return state, {"device_time": "not measured (no CUDA events)"}
+        return {"device_time": "not measured (no CUDA events)"}
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy, cur_start, cur_end = 0.0, spans[0][0], spans[0][1]
     for start, end in spans[1:]:
@@ -945,12 +964,39 @@ def profile_step(torch, step, state, batch, gen):
         by_name[e.name] = by_name.get(e.name, 0.0) + (
             e.time_range.end - e.time_range.start)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    return state, {
+    nccl = [e for e in kernels if "nccl" in e.name.lower()]
+    ops = prof.key_averages()
+    host = sorted(ops, key=lambda a: -a.self_cpu_time_total)[:12]
+    calls = [a for a in ops if "allreduce" in a.key.lower()]
+    return {
         "profiled_wall_ms": wall_ms, "device_busy_ms": busy / 1e3,
         "device_busy_share": busy / 1e3 / wall_ms,
         "kernel_launches": len(kernels),
         "top_kernels_ms": {name[:90]: us / 1e3 for name, us in top},
+        "top_host_self_ms": {a.key[:70]: [a.count, a.self_cpu_time_total / 1e3]
+                             for a in host},
+        "allreduce_calls": {a.key[:70]: [a.count, a.cpu_time_total / 1e3]
+                            for a in calls},
+        "nccl_kernels": len(nccl),
+        "nccl_device_ms": sum(e.time_range.end - e.time_range.start
+                              for e in nccl) / 1e3,
     }
+
+
+def profile_step(torch, step, state, batch, gen):
+    """One step under torch.profiler (trace_summary).  The profiler slows
+    the host, so the span is longer than an unprofiled step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, gen)
+        metrics["loss"].item()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return state, trace_summary(torch, prof, wall_ms)
 
 
 def phase_pretrain(torch, dev):
@@ -1879,6 +1925,358 @@ def phase_ablation(torch, dev):
 
 
 # --------------------------------------------------------------------------
+# phase 11: data parallel
+
+
+def state_digests(model) -> dict:
+    """sha256 of the model's parameters and of its buffers, each tensor's
+    bytes in name order: equal digests are states equal to the bit."""
+    import hashlib
+
+    out = {}
+    for part, named in (("params", model.named_parameters()),
+                        ("buffers", model.named_buffers())):
+        h = hashlib.sha256()
+        for name, tensor in named:
+            h.update(name.encode())
+            h.update(tensor.detach().cpu().contiguous().numpy().tobytes())
+        out[part] = h.hexdigest()
+    return out
+
+
+def ddp_case(case: str) -> dict:
+    """The two shapes the ddp phase runs on two ranks: the RN18 dry run in
+    f32 and the RN50 recipe in bf16 (phase 7's state, batch and draws)."""
+    if case == "rn18":
+        return dict(resnet="18", micro=4, accum=2, canvas=64, view=32,
+                    precision="f32", batch_seed=SEED + 21, draw_seed=SEED + 22)
+    return dict(resnet="50", micro=MICROBATCH, accum=ACCUM, canvas=224,
+                view=128, precision="bf16", batch_seed=SEED + 7,
+                draw_seed=SEED + 8)
+
+
+def ddp_step(torch, case: str, dev, mesh=None) -> dict:
+    """One pretrain step of `case` on the grouped route, from the seeded
+    state, with draws from the case's generator on `dev`; with a mesh, this
+    rank's rows.  The loss, the BatchNorm running statistics (RN18), the
+    state's digests, the launches and the step's seconds."""
+    from peclr_tpu_torch.config.defaults import (
+        AugmentationParams,
+        peclr_pretrain_flags,
+    )
+    from peclr_tpu_torch.ops import augment
+    from peclr_tpu_torch.parallel.mesh import shard_batch
+    from peclr_tpu_torch.train.recipe import (
+        build_pretrain_state,
+        synthetic_pretrain_batch,
+    )
+    from peclr_tpu_torch.train.step import make_peclr_train_step
+
+    c = ddp_case(case)
+    flags = peclr_pretrain_flags()
+    params = AugmentationParams(resize_shape=(c["view"], c["view"]))
+    model, state, opt = build_pretrain_state(c["resnet"], batch=c["micro"],
+                                             accum=c["accum"], device=dev)
+    step = make_peclr_train_step(model, opt, flags, params, accum=c["accum"],
+                                 warp_route="grouped",
+                                 precision=c["precision"], mesh=mesh)
+    batch = synthetic_pretrain_batch(c["micro"] * c["accum"], c["canvas"],
+                                     c["batch_seed"], device=dev)
+    if mesh is not None:
+        batch = shard_batch(mesh, batch, c["accum"])
+    gen = torch.Generator(device=dev).manual_seed(c["draw_seed"])
+    draws = [augment.draw(gen, 2 * c["micro"], flags, params)
+             for _ in range(c["accum"])]
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    state, metrics = step(state, batch, None, draws=draws)
+    loss = metrics["loss"].item()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return {"loss": loss, "launches": kernel_counts(), "seconds": seconds,
+            "step": state.step, "digests": state_digests(model),
+            "rows_a_microbatch": len(batch["image"]) // c["accum"],
+            "running": ({k: v.cpu().numpy() for k, v in
+                         model.state_dict().items() if "running" in k}
+                        if case == "rn18" else None)}
+
+
+def ddp_rank(mesh, case: str) -> dict:
+    """What each spawned rank of the ddp phase runs (gloo, one card)."""
+    import torch
+
+    return ddp_step(torch, case, mesh.device, mesh)
+
+
+def profile_epoch_loop(torch, epoch: int, out: dict):
+    """A stand-in for the trainer's `trace` (utils/profiler.py, which it
+    enters once an epoch around its step loop) that profiles the loop of
+    epoch `epoch` (counted from the first it enters) and puts its
+    trace_summary into `out`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    entered = []
+
+    @contextlib.contextmanager
+    def trace(_logdir):
+        entered.append(None)
+        if len(entered) != epoch + 1:
+            yield
+            return
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            yield
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        out.update(trace_summary(torch, prof, wall_ms))
+
+    return trace
+
+
+def ddp_cli_rank(out: str, argv: list) -> int:
+    """A rank of the pretraining CLI under torch.distributed.run (this
+    script re-entered with --ddp-cli): cli.main(argv) as the module's entry
+    point runs it, with the launches counted at each validation and each
+    checkpoint save's writer recorded; writes what it saw to out.rankN."""
+    import torch
+
+    from peclr_tpu_torch.cli import train as cli
+    from peclr_tpu_torch.train import checkpoint, loop
+
+    writes = []
+    save = checkpoint.CheckpointManager.save
+
+    def counted(self, *args, **kwargs):
+        wrote = save(self, *args, **kwargs)
+        writes.append(wrote)
+        return wrote
+
+    checkpoint.CheckpointManager.save = counted
+    profiled = {}
+    loop.trace = profile_epoch_loop(torch, DDP_CLI_PROFILED_EPOCH, profiled)
+    snapshots = []
+    reset_counts()
+    with launches_at_validation(snapshots):
+        trainer = cli.main(argv)
+    rank = int(os.environ["RANK"])
+    record = {"rank": rank, "world": int(os.environ["WORLD_SIZE"]),
+              "snapshots": snapshots, "counts": kernel_counts(),
+              "writes": writes, "device": str(trainer.device),
+              "backend": trainer.mesh.backend,
+              "log_images": trainer.log_images,
+              "on_card": all(p.is_cuda for p in trainer.model.parameters()),
+              "cudnn_tf32": torch.backends.cudnn.allow_tf32,
+              "checkpoints": sorted(os.listdir(trainer.ckpt.directory)),
+              "profiled": profiled,
+              "epochs": ({f"{c}_{e}": r for (c, e), r in
+                          trainer_epochs(trainer).items()}
+                         if rank == 0 else None)}
+    with open(f"{out}.rank{rank}", "w") as f:
+        json.dump(record, f)
+    return 0
+
+
+def ddp_host_costs(mesh, reps: int = 200) -> dict:
+    """Host and device ms of what the data-parallel step adds, on one NCCL
+    rank (spawned): an all-reduce of a BatchNorm's packed statistics, and a
+    BatchNorm forward and backward across the ranks against the same
+    without a mesh, each `reps` times: at one of RN50's BatchNorm inputs of
+    a recipe microbatch (256 x 256 x 32², bf16, channels last: the device's
+    cost) and at 8 x 256 x 8² (too little work to hold the host back: the
+    host's cost).  Host ms on the host's clock until the last call returns,
+    device ms from CUDA events after a synchronise."""
+    import torch
+
+    from peclr_tpu_torch.models.batchnorm import BatchNorm2d, set_mesh
+
+    dev = mesh.device
+
+    def timed(fn):
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(reps):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3 / reps
+        end.record()
+        torch.cuda.synchronize()
+        return {"host_ms": host_ms,
+                "device_ms": start.elapsed_time(end) / reps}
+
+    packed = torch.zeros(2 * 256 + 1, device=dev)
+    out = {"all_reduce_513_f32": timed(
+        lambda: torch.distributed.all_reduce(packed))}
+    for shape_name, shape in (("recipe", (256, 256, 32, 32)),
+                              ("small", (8, 256, 8, 8))):
+        x = torch.randn(*shape, device=dev).to(
+            torch.bfloat16, memory_format=torch.channels_last)
+        dy = torch.randn_like(x)
+        for name, with_mesh in (("plain", None), ("across_ranks", mesh)):
+            bn = BatchNorm2d(256).to(dev).train()
+            set_mesh(bn, with_mesh)
+            xr = x.detach().requires_grad_(True)
+
+            def fwd_bwd():
+                bn(xr).backward(dy)
+
+            out[f"batchnorm_{name}_{shape_name}"] = timed(fwd_bwd)
+    return out
+
+
+def ddp_two_ranks(torch, dev, case: str, one: dict) -> dict:
+    """The case on two gloo ranks on the card against one process (`one`,
+    the same step on the card): loss, parameters bit-equal across ranks,
+    kernel 1 2 x accum times on each rank and no other kernel."""
+    from peclr_tpu_torch.parallel.dryrun import spawn
+
+    c = ddp_case(case)
+    t0 = time.perf_counter()
+    ranks = spawn(ddp_rank, 2, args=(case,), device=dev, backend="gloo")
+    seconds = time.perf_counter() - t0
+    tol = 1e-3 if case == "rn18" else 1e-2
+    for r, got in enumerate(ranks):
+        check(got["step"] == 1 and math.isfinite(got["loss"]),
+              f"ddp {case} rank {r}: step {got['step']}, loss {got['loss']}")
+        check(got["rows_a_microbatch"] == c["micro"] // 2,
+              f"ddp {case} rank {r}: {got['rows_a_microbatch']} rows")
+        for kname, n in got["launches"].items():
+            want = 2 * c["accum"] if kname == "shift_lerp_grouped" else 0
+            check(n == want, f"ddp {case} rank {r}: {kname} launched {n} "
+                  f"times in a step, want {want}")
+    check(ranks[0]["digests"] == ranks[1]["digests"],
+          f"ddp {case}: the ranks' states differ after the step")
+    check(ranks[0]["loss"] == ranks[1]["loss"], f"ddp {case}: rank losses "
+          f"{ranks[0]['loss']} / {ranks[1]['loss']}")
+    rel = abs(ranks[0]["loss"] / one["loss"] - 1.0)
+    check(rel <= tol, f"ddp {case}: loss {ranks[0]['loss']} against one "
+          f"process's {one['loss']}, rel {rel} > {tol}")
+    out = {"loss_two_ranks": ranks[0]["loss"], "loss_one_process": one["loss"],
+           "loss_rel": rel, "tolerance": tol,
+           "launches_per_rank": ranks[0]["launches"],
+           "rank_step_s": [g["seconds"] for g in ranks],
+           "spawn_s": seconds, "ranks_bit_equal": True}
+    if case == "rn18":
+        worst = 0.0
+        for key, ref in one["running"].items():
+            err = np.abs(ranks[0]["running"][key] - ref).max()
+            worst = max(worst, float(err / max(np.abs(ref).max(), 1e-12)))
+        check(worst <= tol, f"ddp rn18: BN stats against one process "
+              f"{worst} > {tol}")
+        out["bn_stats_worst_rel"] = worst
+    return out
+
+
+def ddp_cli(torch, dev, root, trainer_run) -> dict:
+    """The pretraining CLI at the recipe under torch.distributed.run, one
+    rank with NCCL, for one epoch more than the trainer phase, the last
+    profiled; against the trainer phase's epochs (phase 8: same seed, data
+    and draws)."""
+    out = os.path.join(root, "ddp_cli")
+    env = dict(os.environ,
+               DATA_PATH=os.path.abspath(os.path.dirname(TRAINER_FIXTURE)),
+               SAVED_MODELS_BASE_PATH=os.path.join(root, "ddp_models"),
+               SAVED_META_INFO_PATH=os.path.join(root, "ddp_meta"))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "1", os.path.abspath(__file__), "--ddp-cli",
+           out, *TRAINER_ARGV, "-epochs", str(DDP_CLI_PROFILED_EPOCH + 1)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                          timeout=DDP_CLI_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(proc.stdout[-4000:], proc.stderr[-8000:], file=sys.stderr)
+    check(proc.returncode == 0, f"ddp CLI under torch.distributed.run "
+          f"exited {proc.returncode}")
+    with open(out + ".rank0") as f:
+        rec = json.load(f)
+    check(rec["world"] == 1 and rec["backend"] == "nccl"
+          and rec["device"] == "cuda:0" and rec["on_card"]
+          and not rec["cudnn_tf32"], f"ddp CLI: {rec['world']} ranks, "
+          f"{rec['backend']}, {rec['device']}, on card {rec['on_card']}, "
+          f"TF32 {rec['cudnn_tf32']}")
+    n_epochs = DDP_CLI_PROFILED_EPOCH + 1
+    check(rec["writes"] == [True] * n_epochs, f"ddp CLI: rank 0's checkpoint "
+          f"writes {rec['writes']}, want one an epoch")
+    check(len([d for d in rec["checkpoints"] if d.startswith("epoch_")]) == 2
+          and "index.json" in rec["checkpoints"],
+          f"ddp CLI: checkpoints {rec['checkpoints']} (top-k 2)")
+    figure = 2 if rec["log_images"] else 0
+    per_epoch = 2 * ACCUM + 2 + figure
+    images = MICROBATCH * ACCUM
+    epochs = []
+    for epoch in range(n_epochs):
+        train = rec["epochs"][f"train_{epoch}"]
+        val = rec["epochs"][f"val_{epoch}"]
+        check(train["steps"] == 1 and math.isfinite(train["loss"])
+              and math.isfinite(val["loss"]), f"ddp CLI epoch {epoch}: "
+              f"{train['steps']} steps, loss {train['loss']}")
+        before = rec["snapshots"][epoch - 1] if epoch else {
+            k: 0 for k in rec["counts"]}
+        launched = {k: rec["snapshots"][epoch][k] - before[k]
+                    for k in rec["counts"]}
+        for kname, n in launched.items():
+            want = per_epoch if kname == "shift_lerp_grouped" else 0
+            check(n == want, f"ddp CLI epoch {epoch}: {kname} launched {n} "
+                  f"times, want {want}")
+        epochs.append({
+            "epoch": epoch, "loss": train["loss"], "val_loss": val["loss"],
+            "img_per_s": images / train["epoch_time_s"],
+            "epoch_ms": train["epoch_time_s"] * 1e3,
+            "prefetch_wait_ms": train["data_wait_s"] * 1e3,
+            "step_ms": (train["epoch_time_s"] - train["data_wait_s"]) * 1e3,
+            "peak_mem_bytes": train.get("peak_mem_bytes"),
+            "launches": launched})
+    check(rec["counts"] == rec["snapshots"][-1], "ddp CLI: kernels launched "
+          "after the last validation")
+    rel = abs(epochs[0]["loss"] / trainer_run[0]["loss"] - 1.0)
+    check(rel <= 1e-2, f"ddp CLI epoch-0 loss {epochs[0]['loss']} against "
+          f"the trainer phase's {trainer_run[0]['loss']}: rel {rel} > 1e-2")
+    return {"argv": TRAINER_ARGV, "epochs_run": n_epochs, "seconds": seconds,
+            "epochs": epochs,
+            "epoch0_loss_rel_to_trainer_phase": rel, "tolerance": 1e-2,
+            "trainer_phase_step_ms": [e["step_ms"] for e in trainer_run],
+            "trainer_phase_peak_mem_bytes": [e["peak_mem_bytes"]
+                                             for e in trainer_run],
+            "epoch1_step_ms_over_trainer_phase": (
+                epochs[1]["step_ms"] / trainer_run[1]["step_ms"]),
+            "checkpoint_writes_rank0": rec["writes"],
+            f"profiled_epoch{DDP_CLI_PROFILED_EPOCH}_step": rec["profiled"],
+            "pair_figure": bool(figure)}
+
+
+def phase_ddp(torch, dev, root, trainer_run) -> dict:
+    """Data-parallel pretraining (module docstring, phase 11)."""
+    from peclr_tpu_torch.parallel.dryrun import dryrun_multichip, spawn
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    rn18 = ddp_two_ranks(torch, dev, "rn18", ddp_step(torch, "rn18", dev))
+    # the one-process recipe step is phase 7's, from the same state, batch
+    # and draws, held there within 1e-5 of FIRST_STEP_LOSS
+    rn50 = ddp_two_ranks(torch, dev, "rn50",
+                         {"loss": FIRST_STEP_LOSS["grouped"]})
+    cli = ddp_cli(torch, dev, root, trainer_run)
+    host_costs = spawn(ddp_host_costs, 1, device=dev, backend="nccl")[0]
+    t0 = time.perf_counter()
+    dry_loss = dryrun_multichip(2, device="cuda")
+    dry_s = time.perf_counter() - t0
+    check(math.isfinite(dry_loss), "dryrun_multichip(2): loss not finite")
+    emit("ddp", two_ranks_one_card="gloo, both ranks on " + str(dev) +
+         "; their times share the card and stage through the host: not "
+         "speed", rn18_f32=rn18, rn50_recipe_bf16=rn50, cli_nccl_world1=cli,
+         host_costs_nccl_world1=host_costs,
+         dryrun_multichip_2={"loss": dry_loss, "seconds": dry_s},
+         phase_seconds=time.perf_counter() - t_phase)
+    return {"rn50": rn50, "cli": cli}
+
+
+# --------------------------------------------------------------------------
 # phase 4 / 5 inputs
 
 
@@ -2139,10 +2537,12 @@ def main() -> int:
         finetune_run = phase_finetune(torch, dev, pretrained, root)
         # ---- 10. every augmentation flag, through the same CLI -----------------
         ablation_run = phase_ablation(torch, dev)
+        # ---- 11. data parallel ----------------------------------------------------
+        ddp_run = phase_ddp(torch, dev, root, trainer_run)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
-    # ---- 11. kernels line --------------------------------------------------------
+    # ---- 12. kernels line --------------------------------------------------------
     def summary(name, source, replaces, launches, rows, timed_case, **extra):
         timed = next(r for r in rows if r["case"] == timed_case)
         return {
@@ -2175,6 +2575,11 @@ def main() -> int:
                 launches_per_ablation_epoch=[
                     e["launches"]["shift_lerp_grouped"]
                     for e in ablation_run["epochs"]],
+                launches_per_ddp_step_per_rank=ddp_run["rn50"][
+                    "launches_per_rank"]["shift_lerp_grouped"],
+                launches_per_ddp_cli_epoch=[
+                    e["launches"]["shift_lerp_grouped"]
+                    for e in ddp_run["cli"]["epochs"]],
                 ablation_pass1_ms=kernel_of["ablation_pass1_bf16_to_bf16"][
                     "ms"],
                 ablation_pass1_device_ms=kernel_of[
@@ -2236,4 +2641,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ddp-cli"]:  # a rank of the ddp phase's CLI run
+        sys.exit(ddp_cli_rank(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

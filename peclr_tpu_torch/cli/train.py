@@ -12,6 +12,15 @@ The published PeCLR recipe:
       -accumulate_grad_batches 16 -epochs 100 -save_top_k 5 \\
       -resnet_size 50 -optimizer LARS
 
+Data parallel, one rank a card over NCCL:
+  python -m torch.distributed.run --nproc_per_node N \
+      -m peclr_tpu_torch.cli.train ... -batch_size 128 ...
+Under a launcher (WORLD_SIZE set) the CLI joins the process group
+(parallel/mesh.py:make_mesh; `--device cpu` takes gloo), each rank decodes
+and trains on its rows, and the group is destroyed on exit, errors
+included.  -batch_size stays the global microbatch, as in the reference,
+and must split evenly over the ranks.
+
 Data and output paths come from peclr_tpu_torch.constants (DATA_PATH,
 SAVED_MODELS_BASE_PATH, SAVED_META_INFO_PATH), read when main runs.
 """
@@ -138,23 +147,44 @@ def build_sources(train_cfg: TrainConfig, split: str):
 
 
 def main(argv=None):
-    """Train as the flags say; returns the trainer after fit."""
+    """Train as the flags say; returns the trainer after fit.  Under a
+    launcher (module docstring), data parallel over its ranks."""
+    from peclr_tpu_torch.parallel.mesh import make_mesh
+
+    args = build_parser().parse_args(argv)
+    mesh = make_mesh(device=args.device) if "WORLD_SIZE" in os.environ else None
+    try:
+        return _train(args, mesh)
+    finally:
+        if mesh is not None:
+            mesh.close()
+
+
+def _train(args, mesh):
     from peclr_tpu_torch.data.pipeline import HostPipeline
+    from peclr_tpu_torch.parallel.multihost import local_batch_size
     from peclr_tpu_torch.train.loop import PeCLRTrainer
     from peclr_tpu_torch.utils.logging import get_console_logger
 
     log = get_console_logger("peclr_tpu_torch.cli")
-    args = build_parser().parse_args(argv)
     train_cfg, model_cfg = configs_from_args(args)
     log.info(f"train config: {train_cfg}")
     log.info(f"model config: {model_cfg}")
+    accum = train_cfg.accumulate_grad_batches
+    if mesh is not None:
+        local_batch_size(train_cfg.batch_size, mesh)
+        log.info(f"data parallel: rank {mesh.rank} of {mesh.size} on "
+                 f"{mesh.device} ({mesh.backend}), "
+                 f"{train_cfg.batch_size // mesh.size} rows a microbatch")
 
     train_pipe = HostPipeline(
         build_sources(train_cfg, "train"),
-        batch_size=train_cfg.batch_size * train_cfg.accumulate_grad_batches,
+        batch_size=train_cfg.batch_size * accum,
         canvas=args.canvas,
         seed=train_cfg.seed,
         num_threads=train_cfg.num_workers,
+        mesh=mesh,
+        accum=accum,
     )
     val_pipe = HostPipeline(
         build_sources(train_cfg, "val"),
@@ -163,6 +193,7 @@ def main(argv=None):
         seed=train_cfg.seed,
         num_threads=train_cfg.num_workers,
         shuffle=False,
+        mesh=mesh,
     )
     workdir = None
     if args.experiment_key:
@@ -187,6 +218,7 @@ def main(argv=None):
         tags=args.tag,
         profile_dir=args.profile_dir,
         restore_checkpoint=args.checkpoint,
+        mesh=mesh,
     )
     trainer.fit()
     return trainer

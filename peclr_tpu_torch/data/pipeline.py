@@ -13,11 +13,17 @@ affine (K' = T @ K).
 
 The decoder order is the reference's: the native decoder
 (`native/libpeclr_loader.so`) when it loads, else cv2, else PIL.
+
+Data parallel (a `mesh`, parallel/mesh.py): every rank makes the same global
+order and decodes only its rows of each batch, in shard_batch's layout, and
+`device_prefetch` puts them on the rank's device
+(parallel/multihost.py:global_batch_from_host_local).
 """
 
 from __future__ import annotations
 
 import collections
+import functools
 import itertools
 import queue
 import threading
@@ -29,6 +35,8 @@ import torch
 from peclr_tpu_torch.data import native_loader
 from peclr_tpu_torch.data.sampler import BalancedSampler, EpochSampler
 from peclr_tpu_torch.device import DeviceLike
+from peclr_tpu_torch.parallel.mesh import Mesh, local_rows
+from peclr_tpu_torch.parallel.multihost import global_batch_from_host_local
 
 
 def decode_image(path: str) -> np.ndarray:
@@ -97,7 +105,11 @@ class HostPipeline:
     joints_valid (B, 21, 1), joints3d (B, 21, 3), joints_raw (B, 21, 3)
     (original-frame coordinates) and metric_scale (B,).  `decode_paths`
     counts the batches each decode path made ("native" canvas or
-    "threaded")."""
+    "threaded").
+
+    With a mesh, `batch_size` is the global batch of `accum` microbatches,
+    and each batch holds this rank's rows of it (parallel/mesh.py
+    :local_rows): every rank draws the same order from the same seed."""
 
     def __init__(
         self,
@@ -108,6 +120,8 @@ class HostPipeline:
         num_threads: int = 8,
         balanced: Optional[bool] = None,
         shuffle: bool = True,
+        mesh: Optional[Mesh] = None,
+        accum: int = 1,
     ):
         self.sources = list(sources)
         self.batch_size = batch_size
@@ -123,6 +137,8 @@ class HostPipeline:
         else:
             self.sampler = EpochSampler(len(self.sources[0]), seed, shuffle)
         self.decode_paths: collections.Counter = collections.Counter()
+        self.rows = (None if mesh is None
+                     else local_rows(mesh, batch_size, accum))
 
     def __len__(self):
         return sum(len(s) for s in self.sources)
@@ -211,6 +227,8 @@ class HostPipeline:
         with ThreadPoolExecutor(max_workers=self.num_threads) as pool:
             for b in range(num_batches):
                 chunk = draws[b * self.batch_size: (b + 1) * self.batch_size]
+                if self.rows is not None:
+                    chunk = [chunk[i] for i in self.rows]
                 if use_native:
                     batch = self._native_batch(chunk)
                     if batch is not None:
@@ -324,7 +342,8 @@ def cuda_copier(device: DeviceLike, slots: int = 2) -> Callable:
 
 
 def device_prefetch(batch_iter: Iterable, device: DeviceLike = "cpu",
-                    buffer_size: int = 2, copier: Optional[Callable] = None
+                    buffer_size: int = 2, copier: Optional[Callable] = None,
+                    mesh: Optional[Mesh] = None
                     ) -> Iterator[Dict[str, torch.Tensor]]:
     """Host batches as tensors on `device`, made `buffer_size` ahead by a
     producer thread.
@@ -337,15 +356,25 @@ def device_prefetch(batch_iter: Iterable, device: DeviceLike = "cpu",
     before the consumer's work on it.  On the CPU the tensors are
     torch.from_numpy of the host arrays.  A producer's exception re-raises
     in the consumer; closing the consumer stops the producer and closes
-    batch_iter."""
+    batch_iter.  With a mesh, `device` is the mesh's, and each batch (this
+    rank's rows) goes through global_batch_from_host_local."""
+    if mesh is not None:
+        device = mesh.device
     device = torch.device(device)
     if device.type != "cuda":
-        yield from host_prefetch(_mapped(batch_iter, lambda b: {
-            k: torch.from_numpy(np.asarray(v)) for k, v in b.items()}),
-            buffer_size)
+        if mesh is not None:
+            def put(b):
+                return global_batch_from_host_local(mesh, b)[0]
+        else:
+            def put(b):
+                return {k: torch.from_numpy(np.asarray(v)) for k, v in b.items()}
+        yield from host_prefetch(_mapped(batch_iter, put), buffer_size)
         return
-    copies = host_prefetch(_mapped(batch_iter, copier or cuda_copier(device)),
-                           buffer_size)
+    copier = copier or cuda_copier(device)
+    if mesh is not None:
+        copier = functools.partial(global_batch_from_host_local, mesh,
+                                   copier=copier)
+    copies = host_prefetch(_mapped(batch_iter, copier), buffer_size)
     try:
         for batch, event in copies:
             stream = torch.cuda.current_stream(device)

@@ -8,11 +8,20 @@ buffers, state-dict keys and eval mode, and in train mode take the batch
 statistics from the same fused F.batch_norm call (into scratch buffers at
 momentum 1), then update the running buffers as flax does: momentum 0.1 in
 torch terms, biased variance, eps 1e-5.
+
+Across data-parallel ranks (`set_mesh`), train mode takes the statistics of
+the global batch, as the reference's global-view step does: each call
+all-reduces one packed f32 tensor, the per-channel sums of x and x² and the
+count, normalises with the global mean and flax's max(E[x²] - E[x]², 0),
+and all-reduces the gradient's per-channel sums in its backward
+(_GlobalBatchNorm).  Eval mode, and the module without a mesh, are as
+above.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -20,11 +29,117 @@ from torch import nn
 MOMENTUM = 0.1
 
 
+def _dims_and_shape(x: torch.Tensor):
+    c = x.shape[1]
+    return [0] + list(range(2, x.dim())), (1, c) + (1,) * (x.dim() - 2)
+
+
+def _memory_format(x: torch.Tensor) -> torch.memory_format:
+    if x.dim() == 4 and x.is_contiguous(memory_format=torch.channels_last):
+        return torch.channels_last
+    return torch.contiguous_format
+
+
+def _local_moments(x: torch.Tensor) -> torch.Tensor:
+    """This rank's per-channel sums of x and x² and its count, in f32,
+    packed (2C + 1,)."""
+    dims, _ = _dims_and_shape(x)
+    n = x.numel() // x.shape[1]
+    if x.is_cuda:
+        # one fused pass (Welford); eps 0 keeps 1/invstd² the variance
+        mean, invstd = torch.batch_norm_stats(x, 0.0)
+        return torch.cat([mean, invstd.pow_(-2).addcmul_(mean, mean),
+                          mean.new_ones(1)]).mul_(n)
+    return torch.cat([
+        x.sum(dims, dtype=torch.float32),
+        torch.linalg.vector_norm(x, 2, dims, dtype=torch.float32).square(),
+        x.new_full((1,), n, dtype=torch.float32)])
+
+
+def _backward_sums(dy, x, mean, invstd, weight):
+    """This rank's per-channel Σdy and Σdy·(x - mean), and its weight and
+    bias gradients."""
+    if x.is_cuda:
+        return torch.batch_norm_backward_reduce(dy, x, mean, invstd, weight,
+                                                True, True, True)
+    dims, shape = _dims_and_shape(x)
+    sum_dy = dy.sum(dims)
+    sum_dy_xmu = (dy * (x - mean.view(shape))).sum(dims)
+    return sum_dy, sum_dy_xmu, sum_dy_xmu * invstd, sum_dy
+
+
+def _backward_elemt(dy, x, mean, invstd, weight, sum_dy, sum_dy_xmu, count):
+    """dx from the global batch's Σdy and Σdy·(x - mean) over its count."""
+    if x.is_cuda:
+        return torch.batch_norm_backward_elemt(
+            dy, x, mean, invstd, weight, sum_dy, sum_dy_xmu,
+            count.to(torch.int32).view(1))
+    _, shape = _dims_and_shape(x)
+    mean_dy = (sum_dy / count).view(shape)
+    proj = (invstd * invstd * sum_dy_xmu / count).view(shape)
+    return ((dy - mean_dy - (x - mean.view(shape)) * proj)
+            * (invstd * weight).view(shape))
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Train-mode BatchNorm of x (N, C, ...) with the statistics of every
+    rank's batch: one all-reduce in the forward, one in the backward.
+
+    forward: this rank's per-channel sums of x and x² and its count, in f32,
+    packed into one tensor and all-reduced; the global mean and flax's
+    variance max(E[x²] - E[x]², 0); x normalised with them.  backward: this
+    rank's per-channel Σdy and Σdy·(x - mean), packed and all-reduced, then
+    dx from the global sums; the weight and bias gradients are this rank's
+    (the data-parallel gradient all-reduce adds the ranks').  On the card
+    these are the fused kernels of torch's SyncBatchNorm (a Welford
+    statistics pass, the normalisation, the backward's reduce and
+    elementwise passes), so the device moves what the fused train-mode
+    BatchNorm moves; on the CPU, the same formulas written out (and the
+    eval-mode BatchNorm).  Saved: x in its own dtype and per-channel
+    vectors."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, group):
+        c = x.shape[1]
+        packed = _local_moments(x)
+        dist.all_reduce(packed, group=group)
+        count = packed[2 * c]
+        moments = packed[:2 * c] / count
+        mean = moments[:c]
+        var = torch.addcmul(moments[c:], mean, mean, value=-1).clamp_min_(0.0)
+        invstd = (var + eps).rsqrt_()
+        ctx.save_for_backward(x, weight, mean, invstd, count)
+        ctx.group = group
+        ctx.mark_non_differentiable(mean, var)
+        out = (torch.batch_norm_elemt(x, weight, bias, mean, invstd, eps)
+               if x.is_cuda
+               else F.batch_norm(x, mean, var, weight, bias, False, 0.0, eps))
+        return out, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _mean, _var):
+        x, weight, mean, invstd, count = ctx.saved_tensors
+        c = x.shape[1]
+        dy = dy.contiguous(memory_format=_memory_format(x))
+        sum_dy, sum_dy_xmu, dw, db = _backward_sums(dy, x, mean, invstd,
+                                                    weight)
+        total = torch.cat([sum_dy, sum_dy_xmu]).float()
+        dist.all_reduce(total, group=ctx.group)
+        dx = _backward_elemt(dy, x, mean, invstd, weight, total[:c],
+                             total[c:], count)
+        return dx, dw, db, None, None
+
+
 class _ReferenceStats:
+    #: the mesh whose ranks share the batch statistics (set_mesh), or None
+    mesh = None
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
         self._check_input_dim(x)
+        if self.mesh is not None:
+            return self._forward_across_ranks(x)
         # momentum 1 writes the batch mean and the unbiased batch variance
         mean = torch.zeros_like(self.running_mean)
         var = torch.ones_like(self.running_var)
@@ -36,6 +151,27 @@ class _ReferenceStats:
             self.running_var.lerp_(var * ((n - 1) / n), MOMENTUM)
             self.num_batches_tracked.add_(1)
         return out
+
+    def _forward_across_ranks(self, x: torch.Tensor) -> torch.Tensor:
+        out, mean, var = _GlobalBatchNorm.apply(x, self.weight, self.bias,
+                                                self.eps, self.mesh.group)
+        with torch.no_grad():
+            torch._foreach_lerp_([self.running_mean, self.running_var],
+                                 [mean, var], MOMENTUM)
+            self.num_batches_tracked.add_(1)
+        return out
+
+
+def set_mesh(model: nn.Module, mesh) -> int:
+    """Let every reference-statistics BatchNorm of `model` take its train
+    statistics over `mesh`'s ranks (None: this process's batch alone).
+    Returns how many there are."""
+    count = 0
+    for module in model.modules():
+        if isinstance(module, _ReferenceStats):
+            module.mesh = mesh
+            count += 1
+    return count
 
 
 class BatchNorm1d(_ReferenceStats, nn.BatchNorm1d):

@@ -10,6 +10,11 @@ checkpoints, saved every `period` epochs, ranked by `checkpoint_saving_loss`
 model's and the optimizer's state_dicts (the optimizer's update count
 included) and the step, beside <workdir>/checkpoints/index.json ({epoch:
 score} of the kept checkpoints).
+
+Data parallel (a `mesh`): rank 0 alone writes the checkpoints and the
+index, every rank waits for it at a barrier, and every rank restores.  The
+state dict is the model's own (the module DistributedDataParallel wraps), so
+checkpoints stay loadable without a `module.` prefix.
 """
 
 from __future__ import annotations
@@ -37,7 +42,10 @@ class CheckpointManager:
         save_top_k: int = 3,
         period: int = 1,
         monitor: str = "checkpoint_saving_loss",
+        mesh=None,
     ):
+        self.mesh = mesh
+        self.writer = mesh is None or mesh.rank == 0
         self.directory = os.path.join(directory, "checkpoints")
         os.makedirs(self.directory, exist_ok=True)
         self.save_top_k = save_top_k
@@ -69,9 +77,16 @@ class CheckpointManager:
 
     def save(self, epoch: int, state, metrics: Dict[str, float]) -> bool:
         """Save `state` (train/state.py:TrainState) if the period elapsed;
-        keep only the best top-k."""
+        keep only the best top-k.  Returns whether this process wrote (with
+        a mesh, rank 0 writes and every rank returns after it has)."""
         if (epoch + 1) % self.period != 0:
             return False
+        wrote = self.writer and self._write(epoch, state, metrics)
+        if self.mesh is not None:
+            self.mesh.barrier()
+        return wrote
+
+    def _write(self, epoch: int, state, metrics: Dict[str, float]) -> bool:
         score = float(metrics.get(self.monitor, np.inf))
         path = self._epoch_dir(epoch)
         if os.path.exists(path):

@@ -23,6 +23,13 @@ resume, as in the reference.
 
 Per-step metrics stay on the device until the epoch's end; only
 `log_interval="step"` reads them every step.
+
+Data parallel (`mesh`, parallel/mesh.py): each rank trains on its rows of
+every batch (the pipelines given must be built with the same mesh) on the
+mesh's device, with the same seeds and generator streams as one process;
+the step's and the validation's losses are the global batch's, and
+throughput counts global images.  Rank 0 alone writes the tracker's files,
+the figures and the checkpoints; every rank restores.
 """
 
 from __future__ import annotations
@@ -44,12 +51,14 @@ from peclr_tpu_torch.data.pipeline import (
 )
 from peclr_tpu_torch.device import DeviceLike, resolve_device
 from peclr_tpu_torch.models import PeCLRModel
+from peclr_tpu_torch.parallel.mesh import Mesh, replicated
 from peclr_tpu_torch.train.checkpoint import CheckpointManager, save_experiment_key
 from peclr_tpu_torch.train.optimizer import build_optimizer
 from peclr_tpu_torch.train.state import TrainState
 from peclr_tpu_torch.train.step import make_peclr_eval_step, make_peclr_train_step
 from peclr_tpu_torch.utils.logging import (
     ExperimentLogger,
+    NullLogger,
     get_console_logger,
     prepare_name,
 )
@@ -88,9 +97,13 @@ class PeCLRTrainer:
         auto_resume: bool = True,
         log_images: bool = True,
         restore_checkpoint: str = "",
+        mesh: Optional[Mesh] = None,
     ):
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
+        writer = mesh is None or mesh.rank == 0
         self.log = get_console_logger("peclr_tpu_torch.train")
+        log_images = log_images and writer
         if log_images and importlib.util.find_spec("matplotlib") is None:
             # decided once, so a host without matplotlib augments no figure
             self.log.warning("pair figures off: matplotlib is not installed")
@@ -118,10 +131,17 @@ class PeCLRTrainer:
         self.experiment_name = experiment_name or prepare_name(
             "hybrid2_", train_cfg.batch_size, flags.active()
         )
-        self.tracker = ExperimentLogger(
-            constants.SAVED_META_INFO_PATH, self.experiment_name,
-            log_interval=log_interval,
-        )
+        if writer:
+            self.tracker = ExperimentLogger(
+                constants.SAVED_META_INFO_PATH, self.experiment_name,
+                log_interval=log_interval,
+            )
+        if mesh is not None:  # every rank's checkpoints under rank 0's key
+            key = mesh.broadcast_object(
+                self.tracker.experiment_key if writer else None)
+            if not writer:
+                self.tracker = NullLogger(self.experiment_name, key,
+                                          log_interval)
         self.tracker.log_parameters({
             "train": train_cfg.__dict__,
             "model": model_cfg.__dict__,
@@ -132,7 +152,7 @@ class PeCLRTrainer:
             ),
         })
         self.tracker.add_tags(["pretraining", "HYBRID2", *tags])
-        if meta_file is not None:
+        if meta_file is not None and writer:
             save_experiment_key(
                 constants.SAVED_META_INFO_PATH, self.experiment_name,
                 self.tracker.experiment_key, meta_file,
@@ -141,7 +161,7 @@ class PeCLRTrainer:
             constants.SAVED_MODELS_BASE_PATH, self.tracker.experiment_key
         )
         self.ckpt = CheckpointManager(
-            workdir, save_top_k=save_top_k, period=save_period
+            workdir, save_top_k=save_top_k, period=save_period, mesh=mesh
         )
 
         # ---- model + optimizer -------------------------------------------
@@ -175,7 +195,7 @@ class PeCLRTrainer:
         else:
             augmentations = model_cfg.augmentation or flags.active()
         step_kw = dict(accum=accum, augmentations=augmentations,
-                       precision=train_cfg.precision)
+                       precision=train_cfg.precision, mesh=mesh)
         params = train_cfg.augmentation_params
         # the hot path runs without the projection statistics; the variant
         # with them runs on logged steps only
@@ -185,7 +205,7 @@ class PeCLRTrainer:
             self.model, opt, flags, params, with_stats=True, **step_kw)
         self.eval_step = make_peclr_eval_step(
             self.model, flags, params, augmentations=augmentations,
-            precision=train_cfg.precision)
+            precision=train_cfg.precision, mesh=mesh)
 
         self.start_epoch = 0
         if restore_checkpoint:
@@ -200,6 +220,8 @@ class PeCLRTrainer:
             if restored is not None:
                 self.start_epoch = epoch + 1
                 self.log.info(f"auto-resumed from epoch {epoch}")
+        if mesh is not None:
+            replicated(mesh, self.model)
 
     # ------------------------------------------------------------------
     def fit(self, epochs: Optional[int] = None) -> TrainState:
@@ -224,7 +246,7 @@ class PeCLRTrainer:
             t_start = time.perf_counter()
             batches = device_prefetch(
                 self.pipeline.batches(self.steps_per_epoch, epoch=epoch),
-                self.device, copier=self._copiers.get("train"),
+                self.device, copier=self._copiers.get("train"), mesh=self.mesh,
             )
             with trace(self.profile_dir if epoch == self.start_epoch else None):
                 t_wait = time.perf_counter()
@@ -316,7 +338,7 @@ class PeCLRTrainer:
         losses = []
         for i, batch in enumerate(device_prefetch(
                 self.val_pipeline.batches(n, epoch=epoch), self.device,
-                copier=self._copiers.get("val"))):
+                copier=self._copiers.get("val"), mesh=self.mesh)):
             gen = stream_generator(self.device, VAL_SEED_BASE + epoch, i)
             losses.append(self.eval_step(self.state, batch, gen)["loss"])
         return {"loss": float(np.mean(torch.stack(losses).cpu().numpy()))}

@@ -20,10 +20,28 @@ both in f32.
 
 `make_peclr_eval_step` is the validation step: the same augmentation,
 equivariance and loss on one batch, the model in eval mode, no update.
+
+Data parallel (`mesh`, parallel/mesh.py): each rank holds its rows of every
+microbatch (shard_batch's layout), and the step's result is the reference's
+global-view step on the global batch, up to summation order:
+  * every rank draws each microbatch's augmentation for the global 2B from
+    the same generator stream and keeps its rows of both views, so W ranks
+    see the single-process run's augmentation;
+  * the BatchNorms take the global batch's statistics (models/batchnorm.py
+    :set_mesh) and NT-Xent's negatives span the global 2B (gathered), so
+    every rank's loss is the global one;
+  * the model runs under DistributedDataParallel, whose one gradient
+    all-reduce a step (`no_sync` on all microbatches but the last) takes
+    the mean over W of the ranks' gradients: each is W times its rows'
+    share (the gather's backward sums over the ranks), so the mean is the
+    gradient of the global mean loss, and the update is the same on every
+    rank.
+The collectives run at every world size, 1 included.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List, Optional, Sequence
 
 import torch
@@ -32,7 +50,10 @@ from torch import nn
 from peclr_tpu_torch.config.defaults import AugmentationFlags, AugmentationParams
 from peclr_tpu_torch.losses.equivariance import peclr_projections
 from peclr_tpu_torch.losses.ntxent import ntxent_loss
-from peclr_tpu_torch.ops.augment import augment_pair
+from peclr_tpu_torch.models.batchnorm import set_mesh
+from peclr_tpu_torch.ops.augment import augment_pair, draw
+from peclr_tpu_torch.parallel.collectives import all_gather
+from peclr_tpu_torch.parallel.mesh import Mesh, shard_batch
 from peclr_tpu_torch.train.optimizer import PretrainOptimizer
 from peclr_tpu_torch.train.state import TrainState
 
@@ -63,6 +84,22 @@ def _check_precision(precision: str) -> None:
         raise ValueError(f"precision={precision!r}, want one of {PRECISIONS}")
 
 
+def _rank_draws(mesh: Mesh, generator: Optional[torch.Generator], rows: int,
+                flags: AugmentationFlags, aug_params: AugmentationParams,
+                draws: Optional[Dict[str, torch.Tensor]]):
+    """This rank's draws of a microbatch whose rank share is `rows`: the
+    global 2B draws (`draws`, or fresh from the generator) cut to the
+    rank's rows of both views."""
+    n = 2 * rows * mesh.size
+    if draws is None:
+        draws = draw(generator, n, flags, aug_params)
+    got = len(next(iter(draws.values())))
+    if got != n:
+        raise ValueError(f"draws of {got} samples for a global microbatch of "
+                         f"{rows} rows on each of {mesh.size} ranks (want {n})")
+    return shard_batch(mesh, draws, accum=2)
+
+
 def make_peclr_train_step(
     model: nn.Module,
     optimizer: PretrainOptimizer,
@@ -74,6 +111,7 @@ def make_peclr_train_step(
     precision: str = "bf16",
     augmentations: Optional[Sequence[str]] = None,
     with_stats: bool = True,
+    mesh: Optional[Mesh] = None,
 ):
     """Returns step(state, batch, generator, draws=None) -> (state, metrics).
 
@@ -87,11 +125,19 @@ def make_peclr_train_step(
     gather warp, which launches none).  metrics: the mean loss and,
     with_stats, the last microbatch's projection_stats, as the reference
     reports (the trainer's hot path runs without them).  Nothing in the
-    step waits on the card: metrics stay device tensors."""
+    step waits on the card: metrics stay device tensors.
+
+    With a mesh (module docstring) the batch holds this rank's accum*B/W
+    rows, `draws` the global 2B parameters of each microbatch, and the
+    metrics are the global batch's."""
     if augmentations is None:
         augmentations = flags.active()
     _check_precision(precision)
     image_size = tuple(aug_params.resize_shape)
+    forward = model
+    if mesh is not None:
+        set_mesh(model, mesh)
+        forward = mesh.ddp(model)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    generator: Optional[torch.Generator],
@@ -116,25 +162,39 @@ def make_peclr_train_step(
         loss_sum = torch.zeros((), device=device)
         for i in range(accum):
             sl = slice(i * mb, (i + 1) * mb)
+            mb_draws = None if draws is None else draws[i]
+            if mesh is not None:
+                mb_draws = _rank_draws(mesh, generator, mb, flags, aug_params,
+                                       mb_draws)
             v1, v2 = augment_pair(
                 generator, images[sl], joints[sl], flags, aug_params,
-                draws=None if draws is None else draws[i], route=warp_route,
+                draws=mb_draws, route=warp_route,
                 compute_dtype=compute_dtype)
-            with torch.autocast(device.type, dtype=torch.bfloat16,
-                                enabled=bf16):
-                out = model(torch.cat([v1.images, v2.images]))
-            proj = out["projection"]
-            z1, z2 = peclr_projections(proj[:mb], proj[mb:], v1.params,
-                                       v2.params, image_size=image_size,
-                                       augmentations=augmentations)
-            loss = ntxent_loss(z1, z2, temperature)
-            (loss / accum).backward()
+            # one gradient all-reduce a step, in the last microbatch's
+            # backward
+            sync = (forward.no_sync() if mesh is not None and i < accum - 1
+                    else contextlib.nullcontext())
+            with sync:
+                with torch.autocast(device.type, dtype=torch.bfloat16,
+                                    enabled=bf16):
+                    out = forward(torch.cat([v1.images, v2.images]))
+                proj = out["projection"]
+                z1, z2 = peclr_projections(proj[:mb], proj[mb:], v1.params,
+                                           v2.params, image_size=image_size,
+                                           augmentations=augmentations)
+                loss = ntxent_loss(z1, z2, temperature, mesh=mesh)
+                (loss / accum).backward()
             loss_sum += loss.detach()
         stats = {}
         if with_stats:
-            proj = proj.detach()
-            stats = {**projection_stats(proj[:mb], "proj1"),
-                     **projection_stats(proj[mb:], "proj2")}
+            proj1, proj2 = proj[:mb].detach(), proj[mb:].detach()
+            if mesh is not None:
+                # the median does not decompose: the stats of the gathered
+                # global projections
+                proj1, proj2 = (all_gather(p.float(), mesh).to(p.dtype)
+                                for p in (proj1, proj2))
+            stats = {**projection_stats(proj1, "proj1"),
+                     **projection_stats(proj2, "proj2")}
         optimizer.step()
         state.step += 1
         return state, {"loss": loss_sum / accum, **stats}
@@ -149,12 +209,15 @@ def make_peclr_eval_step(
     temperature: float = 0.5,
     precision: str = "bf16",
     augmentations: Optional[Sequence[str]] = None,
+    mesh: Optional[Mesh] = None,
 ):
     """Returns eval_step(state, batch, generator, draws=None) -> {'loss'}:
     the train step's augmentation, inverse transforms and NT-Xent on one
     batch of B canvases, one forward of the model in eval mode under
     torch.inference_mode, no update.  `draws` (2B parameters) replaces the
-    generator's draws, as in the train step."""
+    generator's draws, as in the train step.  With a mesh the batch is this
+    rank's B/W rows, `draws` the global 2B, and the loss the global
+    batch's (the BatchNorms need nothing in eval mode)."""
     if augmentations is None:
         augmentations = flags.active()
     _check_precision(precision)
@@ -171,6 +234,8 @@ def make_peclr_eval_step(
         b = images.shape[0]
         device = images.device
         bf16 = device.type == "cuda" and precision == "bf16"
+        if mesh is not None:
+            draws = _rank_draws(mesh, generator, b, flags, aug_params, draws)
         v1, v2 = augment_pair(
             generator, images, batch["joints25d"], flags, aug_params,
             draws=draws,
@@ -181,6 +246,6 @@ def make_peclr_eval_step(
         z1, z2 = peclr_projections(proj[:b], proj[b:], v1.params, v2.params,
                                    image_size=image_size,
                                    augmentations=augmentations)
-        return {"loss": ntxent_loss(z1, z2, temperature)}
+        return {"loss": ntxent_loss(z1, z2, temperature, mesh=mesh)}
 
     return eval_step

@@ -166,6 +166,35 @@ class ExperimentLogger:
         self.remote = None
 
 
+class NullLogger:
+    """ExperimentLogger's surface, recording nothing: the tracker of a
+    data-parallel rank other than 0 (rank 0 alone writes)."""
+
+    dir = None
+
+    def __init__(self, experiment_name: str, experiment_key: str,
+                 log_interval: str = "epoch"):
+        self.experiment_name = experiment_name
+        self.experiment_key = experiment_key
+        self.log_interval = log_interval
+
+    def log_parameters(self, params: Dict[str, Any]):
+        pass
+
+    def add_tags(self, tags):
+        pass
+
+    def log_metrics(self, metrics: Dict[str, float], step: Optional[int] = None,
+                    epoch: Optional[int] = None, context: str = "train"):
+        pass
+
+    def log_figure(self, path: str, name: Optional[str] = None):
+        pass
+
+    def close(self):
+        pass
+
+
 def _to_float(v):
     try:
         return float(v)

@@ -574,3 +574,201 @@ def test_all_flags_microbatch_on_the_card(card, route):
     assert launched == ([2, 0, 0] if route == "grouped" else [0, 0, 0])
     assert torch.isfinite(metrics["loss"]).item()
     assert state.step == 1
+
+
+def _rank_rows(rank, images, rows_an_image):
+    """Rank `rank` of 2's images of a doubled microbatch of `images` (both
+    views) and their rows, in parallel/mesh.py:shard_batch's layout."""
+    from peclr_tpu_torch.parallel.mesh import Mesh, local_rows
+
+    mesh = Mesh(None, rank, 2, torch.device("cpu"), "gloo")
+    imgs = local_rows(mesh, images, accum=2)
+    rows = (imgs[:, None] * rows_an_image + np.arange(rows_an_image)).reshape(-1)
+    return torch.from_numpy(imgs), torch.from_numpy(rows)
+
+
+@pytest.mark.parametrize("kernel", ["grouped", "flat", "matmul"])
+def test_rank_rows_equal_the_whole_batch_rows(card, kernel):
+    """Data parallel, each rank calls the warp's kernels on its own images'
+    rows (the counterpart of the reference's _grouped_cp / _flat_cp
+    partitioning rules): a rank's call of kernel 1, 3 or 4 equals those
+    rows of the whole batch's call, bit for bit for kernels 1 and 3 and
+    within kernel 4's bf16 bound of 1.0, at the recipe's first-pass widths
+    (224² uint8 canvases to 384 columns, 16 images: 8 a view)."""
+    rng = np.random.default_rng(9)
+    n_img, r, w, c, out = 16, 224, 224, 3, 384
+    k, f = _shifts(rng, card, n_img * r, w, out)
+    for rank in range(2):
+        imgs, rows = _rank_rows(rank, n_img, r)
+        imgs, rows = imgs.to(card), rows.to(card)
+        if kernel == "grouped":
+            x = torch.from_numpy(rng.integers(0, 256, (3, n_img * r, w))
+                                 .astype(np.uint8)).to(card)
+            whole = fused_shift_lerp_grouped(x, k, f, out, torch.bfloat16)
+            part = fused_shift_lerp_grouped(x[:, rows].contiguous(), k[rows],
+                                            f[rows], out, torch.bfloat16)
+            assert torch.equal(part, whole[:, rows])
+        elif kernel == "flat":
+            x = torch.from_numpy(rng.integers(0, 256, (n_img * r, w * c))
+                                 .astype(np.uint8)).to(card)
+            whole = fused_shift_lerp(x, k, f, out * c, c, torch.bfloat16)
+            part = fused_shift_lerp(x[rows].contiguous(), k[rows], f[rows],
+                                    out * c, c, torch.bfloat16)
+            assert torch.equal(part, whole[rows])
+        else:
+            x = torch.from_numpy(rng.integers(0, 256, (3, n_img, r, w))
+                                 .astype(np.uint8)).to(card)
+            s = torch.from_numpy(rng.uniform(1.0, 2.5, (n_img,))
+                                 .astype(np.float32))
+            w_t = _area_matrix(s, out, 128, transposed=True).to(
+                card, torch.bfloat16)
+            whole = fused_shift_lerp_matmul(x, k, f, w_t, torch.bfloat16)
+            part = fused_shift_lerp_matmul(x[:, imgs].contiguous(), k[rows],
+                                           f[rows], w_t[imgs].contiguous(),
+                                           torch.bfloat16)
+            err = (part.float() - whole[:, imgs].float()).abs().max().item()
+            assert err <= 1.0
+        torch.cuda.synchronize()
+
+
+def _rn18_step(dev, draws, mesh=None):
+    """One RN18 pretrain step at the dry-run shape in f32 on `dev` (this
+    rank's rows with a mesh), fed `draws`: its loss and BatchNorm running
+    statistics."""
+    from peclr_tpu_torch.config.defaults import (
+        AugmentationParams,
+        peclr_pretrain_flags,
+    )
+    from peclr_tpu_torch.parallel.mesh import shard_batch
+    from peclr_tpu_torch.train.recipe import (
+        build_pretrain_state,
+        synthetic_pretrain_batch,
+    )
+    from peclr_tpu_torch.train.step import make_peclr_train_step
+
+    model, state, opt = build_pretrain_state("18", batch=4, accum=2,
+                                             device=dev)
+    step = make_peclr_train_step(model, opt, peclr_pretrain_flags(),
+                                 AugmentationParams(resize_shape=(32, 32)),
+                                 accum=2, precision="f32", mesh=mesh)
+    batch = synthetic_pretrain_batch(8, canvas=64, seed=0, device=dev)
+    if mesh is not None:
+        batch = shard_batch(mesh, batch, accum=2)
+    state, metrics = step(state, batch, None, draws=[
+        {k: torch.from_numpy(v).to(dev) for k, v in d.items()} for d in draws])
+    return metrics["loss"].item(), {
+        k: v.cpu().numpy() for k, v in model.state_dict().items()
+        if "running" in k}
+
+
+def _rn18_rank(mesh, draws):
+    return _rn18_step(mesh.device, draws, mesh)
+
+
+def test_two_gloo_ranks_on_one_card_match_one_process(card):
+    """Two gloo ranks on the one card (NCCL refuses two ranks on one card)
+    run the RN18 dry-run step in f32 as one process on the card does, from
+    the same weights and draws: loss and BatchNorm running statistics
+    within 1e-3, the ranks equal."""
+    from peclr_tpu_torch.config.defaults import (
+        AugmentationParams,
+        peclr_pretrain_flags,
+    )
+    from peclr_tpu_torch.ops import augment
+    from peclr_tpu_torch.parallel.dryrun import spawn
+
+    gen = torch.Generator().manual_seed(3)
+    draws = [{k: v.numpy() for k, v in augment.draw(
+        gen, 8, peclr_pretrain_flags(),
+        AugmentationParams(resize_shape=(32, 32))).items()} for _ in range(2)]
+    loss, running = _rn18_step(card, draws)
+    ranks = spawn(_rn18_rank, 2, args=(draws,), device="cuda:0",
+                  backend="gloo", timeout=300.0)
+    assert ranks[0][0] == ranks[1][0]
+    assert abs(ranks[0][0] / loss - 1.0) <= 1e-3
+    for key, ref in running.items():
+        for got in (ranks[0][1][key], ranks[1][1][key]):
+            err = np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-12)
+            assert err <= 1e-3, key
+
+
+def test_batchnorm_across_ranks_on_the_card(card):
+    """The BatchNorm across two gloo ranks on the card (the fused kernels of
+    SyncBatchNorm) against torch's on the whole batch in one process, as
+    the CPU's written-out formulas are held in tests/test_torch_parallel.py,
+    and against those formulas on the same ranks: f32 within 1e-5 of each
+    tensor's scale."""
+    from peclr_tpu_torch.parallel.dryrun import spawn
+    # by the name pytest gives the file (tests/ is not a package)
+    from test_torch_parallel import (
+        _batchnorm_rank,
+        batchnorm_inputs,
+        check_batchnorm_ranks,
+    )
+
+    x, dy = batchnorm_inputs(n=8, c=64, hw=16)
+    ranks = spawn(_batchnorm_rank, 2, args=(x, dy, ("cpu", "cuda:0")),
+                  device="cuda:0", backend="gloo", timeout=300.0)
+    check_batchnorm_ranks(ranks, x, dy, "cuda:0", rtol=1e-5)
+    for out in ranks:
+        for key, value in out["cpu"].items():
+            scale = np.abs(value).max()
+            np.testing.assert_allclose(out["cuda:0"][key], value, rtol=0,
+                                       atol=1e-5 * scale, err_msg=key)
+
+
+def _host_waits_rank(mesh):
+    """The host's waits on the card in one RN18 step, counted by
+    torch.cuda.set_sync_debug_mode("warn"), without a mesh and with this
+    one NCCL rank's, each after two steps that make DDP's buckets and warm
+    the libraries up."""
+    import warnings
+
+    from peclr_tpu_torch.config.defaults import (
+        AugmentationParams,
+        peclr_pretrain_flags,
+    )
+    from peclr_tpu_torch.parallel.mesh import shard_batch
+    from peclr_tpu_torch.train.recipe import (
+        build_pretrain_state,
+        synthetic_pretrain_batch,
+    )
+    from peclr_tpu_torch.train.step import make_peclr_train_step
+
+    counts = {}
+    for name, with_mesh in (("plain", None), ("mesh", mesh)):
+        model, state, opt = build_pretrain_state("18", batch=4, accum=2,
+                                                 device=mesh.device)
+        step = make_peclr_train_step(
+            model, opt, peclr_pretrain_flags(),
+            AugmentationParams(resize_shape=(32, 32)), accum=2,
+            mesh=with_mesh)
+        batch = synthetic_pretrain_batch(8, canvas=64, seed=0,
+                                         device=mesh.device)
+        if with_mesh is not None:
+            batch = shard_batch(mesh, batch, accum=2)
+        gen = torch.Generator(mesh.device).manual_seed(0)
+        for _ in range(2):
+            state, metrics = step(state, batch, gen)
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                state, metrics = step(state, batch, gen)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        counts[name] = sum("synchronizing" in str(w.message) for w in caught)
+    return counts
+
+
+def test_data_parallel_step_adds_no_host_waits(card):
+    """The data-parallel step (one NCCL rank: the collectives, the cross-
+    rank BatchNorm, DDP, the rank's draws) makes the host wait on the card
+    no more often than the single-process step: each wait holds the next
+    launches back behind the card's queue."""
+    from peclr_tpu_torch.parallel.dryrun import spawn
+
+    (counts,) = spawn(_host_waits_rank, 1, device="cuda:0", backend="nccl",
+                      timeout=300.0)
+    assert counts["mesh"] <= counts["plain"], counts
