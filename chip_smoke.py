@@ -19,13 +19,15 @@ one JSON line that carries the card's name and power limit:
               output tails, with the path each case took and its profiler
               device time; the fused shift+matmul (f32 out within 1e-2,
               bf16 out within 1.0; zero taps exactly 0) at the pretrain
-              recipe's shapes, an odd
-              row count, rows clamped at both ends, dense, tent, zero and
-              ragged taps, with the mean band width the kernel walks
-              (band_taps_mean), and its band pass bit-exact; kernel, plain,
-              bound and library (or grouped-route) times; kernels 1, 3 and 4
-              also on the bf16 first-pass sources of the all-flags
-              augmentation (phase 10), captured from `augment.apply`
+              recipe's shapes with bf16 taps and with the f32 taps of
+              precision="f32" (both passes), an odd row count, rows clamped
+              at both ends, dense, tent, zero and ragged taps, each with
+              bf16 and f32 taps, with the mean band width the kernel walks
+              (band_taps_mean), and its band pass bit-exact for both tap
+              types; kernel, plain, bound and library (or grouped-route)
+              times; kernels 1, 3 and 4 also on the bf16 first-pass sources
+              of the all-flags augmentation (phase 10), captured from
+              `augment.apply`
   4. warp     affine_warp_mxu at the pred_fh geometry, kernel against plain,
               both in bf16 on the card: max abs <= 2.5 (the TPU's bound for
               the same comparison); then the pretrain geometry (256 seeded
@@ -40,6 +42,17 @@ one JSON line that carries the card's name and power limit:
               batch; agreement with the plain path and with the CPU on a
               small input
   6. serving  InferenceSession (batch 32, 128 px) on a few requests
+ 6a. host_waits  the host's waits on the card, after one call of each path:
+              the pretrain step (RN18, 64 -> 32, accum 2) with the recipe's
+              flags and with every flag on each warp route, and on the
+              matmul route in f32; the fine-tune step; one two-pass batch
+              of the slice (RN50, 120 frames) and one
+              InferenceSession._predict; the waits torch's sync debug mode
+              reports (call sites beside them) must be none, and the host's
+              time behind a busy card shows the waits torch does not report
+              (required short for the paths that launch fewer kernels than
+              the launch queue holds; a step fills it and blocks, with the
+              call it blocked in named)
   7. pretrain the RN50 PeCLR pretrain step (microbatch 128 x accum 16, bf16
               autocast) on the warp routes in turns; img/s, ms per step,
               peak memory, launch counts (2 x accum of the route's kernel a
@@ -48,6 +61,11 @@ one JSON line that carries the card's name and power limit:
               draws within 1e-2; the card against the CPU at the dry-run
               shape (RN18, 64 -> 32, accum 2, f32): loss and BatchNorm
               running statistics within 1e-3
+ 7a. pretrain_f32_matmul  one RN50 recipe step at precision="f32" (TF32
+              off) on the matmul route, kernel 4 with f32 taps (32
+              launches), after one warm-up step, against the same step on
+              the grouped route in f32 with the same draws: loss within
+              1e-3 relative, ms a step, peak memory
   8. trainer  first the host's JPEG codecs (cv2, PIL, the native loader,
               libjpeg), then the pretraining CLI (peclr_tpu_torch.cli.train)
               at the recipe (RN50, 128 x 16, LARS, bf16, 224 -> 128) for two
@@ -120,6 +138,12 @@ one JSON line that carries the card's name and power limit:
 Then the card's nvidia-smi line, and last the contract line
 {"ok": true, "device": {...}}.  No weights are read (they are made from a
 seed); the only data read is the trainer's fixture.
+
+    python3 chip_smoke.py --turns    # one tree's side of a comparison
+
+runs only what compares two trees on one card, each in its own process in
+turns (turns_main: kernel 4's f32 passes, the host waits of every path, the
+leaderboard's img/s, the recipe step's ms and busy share).
 """
 
 from __future__ import annotations
@@ -685,40 +709,90 @@ def matmul_bound(rows4, k, w_t, out):
     return bound + (dense_ms, moved)
 
 
-def rounded_band_mean(band, u: int) -> float:
-    """Mean width of the bands the kernel walks, from tap_band's output: lo
-    rounded down and hi up to the MMA depth (kDepth = 16 of
-    csrc/shift_lerp_matmul.cu), hi at most U rounded up, an empty band
-    empty."""
+#: outputs a band tile covers and the step its walk is rounded out to, for
+#: bf16 and f32 taps (csrc/shift_lerp_matmul.cu: kBandM and kDepth, kF32TileM
+#: and the 4 taps of a 16-byte load; the kernel phase holds them to the
+#: wrapper's BAND_M and BAND_M_F32)
+BAND_WALK = {"torch.bfloat16": (32, 16), "torch.float32": (8, 4)}
+
+
+def rounded_band_mean(w_t) -> float:
+    """Mean width of the bands the kernel walks for these taps: each tile's
+    band (tap_band_plain at the taps' tile), lo rounded down and hi up to
+    the walk's step, hi at most U rounded up, an empty band empty."""
+    from peclr_tpu_torch.ops.shift_lerp_matmul import tap_band_plain
+
+    tile, step = BAND_WALK[str(w_t.dtype)]
+    u = w_t.shape[2]
+    band = tap_band_plain(w_t, tile)
     lo, hi = band[..., 0].long(), band[..., 1].long()
-    lo_r = lo // 16 * 16
-    hi_r = (-(-hi // 16) * 16).clamp(max=-(-u // 16) * 16)
+    lo_r = lo // step * step
+    hi_r = (-(-hi // step) * step).clamp(max=-(-u // step) * step)
     return (hi_r - lo_r).where(hi > lo, 0).double().mean().item()
 
 
-def phase_matmul_kernel(torch, dev):
-    """Kernel 4 at the matmul route's shapes of the pretrain recipe, with
-    area tap matrices of the recipe's slopes: pass 1 (3, 256, 224, 224)
-    uint8, taps (256, 128, 384) bf16 -> (3, 256, 128, 224) bf16; pass 2
-    (3, 256, 128, 224) bf16, taps (256, 128, 256) bf16 -> (3, 256, 128, 128)
-    f32; the f32 taps of precision="f32"; an odd row count; clamped rows;
-    dense taps (the band is all of U: the worst case); tent taps of an
-    upscale; all-zero taps; U = 100 and M = 72 (scalar tap staging, ragged
-    tiles).  Beside each: the grouped route for the same pass (kernel 1 then
-    torch.matmul), the yardstick of whether fusing pays on this card, and
-    the mean width of the bands the kernel walks.  Then the band pass alone
-    against its plain version, bit-exact, at the pass-1 and pass-2 taps."""
+def matmul_row(torch, name, rows4, k, f, w_t, out_dtype, tol):
+    """Kernel 4 on one case against its plain version (max_abs <= tol,
+    finite; exactly 0 for the clamped and zero cases), timed beside its
+    bound, the plain version and the grouped route for the same pass
+    (kernel 1 then torch.matmul, the yardstick of whether fusing pays),
+    with the mean width of the bands it walks."""
     from peclr_tpu_torch.ops.shift_lerp import fused_shift_lerp_grouped
     from peclr_tpu_torch.ops.shift_lerp_matmul import (
         fused_shift_lerp_matmul,
         shift_lerp_matmul_plain,
-        tap_band,
-        tap_band_plain,
     )
-    from peclr_tpu_torch.ops.warp_mxu import _area_matrix, _tent_matrix
 
-    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
-    b = 2 * MICROBATCH
+    g, nb, r, w = rows4.shape
+    u = w_t.shape[2]
+
+    def kern():
+        return fused_shift_lerp_matmul(rows4, k, f, w_t, out_dtype)
+
+    def plain():
+        return shift_lerp_matmul_plain(rows4, k, f, w_t, out_dtype)
+
+    def grouped_route():
+        win = fused_shift_lerp_grouped(rows4.view(g, nb * r, w), k, f, u,
+                                       out_dtype=w_t.dtype)
+        win = win.view(g, nb, r, u).transpose(-1, -2)
+        if out_dtype == torch.float32:
+            return torch.matmul(w_t.float(), win.float())
+        return torch.matmul(w_t, win)
+
+    got, ref = kern(), plain()
+    torch.cuda.synchronize()
+    max_abs = (got.float() - ref.float()).abs().max().item()
+    check(max_abs <= tol, f"{name}: max_abs {max_abs} > {tol}")
+    check(bool(torch.isfinite(got).all()), f"{name}: not finite")
+    if name.startswith(("matmul_clamped", "matmul_zero")):
+        check(got.abs().max().item() == 0, f"{name}: output not zero")
+    (bound, bound_by, dense_ms, moved) = matmul_bound(rows4, k, w_t, got)
+    row = {
+        "case": name, "shape_in": list(rows4.shape),
+        "taps": list(w_t.shape), "in_dtype": str(rows4.dtype),
+        "taps_dtype": str(w_t.dtype), "out_dtype": str(got.dtype),
+        "max_abs": max_abs, "tolerance": tol,
+        "ms": cuda_ms(kern, 20), "device_ms": device_ms(kern, 10),
+        "plain_ms": cuda_ms(plain, 3),
+        "bound_ms": bound, "bound_by": bound_by, "bytes_moved": moved,
+        "dense_taps_ops_ms": dense_ms,
+        "library_ms": None,  # no one PyTorch call shifts, lerps and multiplies
+        "grouped_route_ms": cuda_ms(grouped_route, 10),
+        "band_taps_mean": rounded_band_mean(w_t),
+    }
+    emit("kernel", **row)
+    return row
+
+
+def matmul_inputs(torch, dev, seed):
+    """Seeded inputs of kernel 4 at the matmul route's shapes of the
+    pretrain recipe (2B = 256 canvases): uniform(shape, lo, hi), taps(nb, u,
+    m, slopes, dtype, matrix), rows_of(shape, dtype) and shifts(off, u, w)
+    -> (k, f)."""
+    from peclr_tpu_torch.ops.warp_mxu import _area_matrix
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
 
     def uniform(shape, lo, hi):
         return torch.rand(shape, generator=gen, device=dev) * (hi - lo) + lo
@@ -730,6 +804,57 @@ def phase_matmul_kernel(torch, dev):
         x = uniform(shape, 0, 255)
         return x.floor().to(dtype) if dtype == torch.uint8 else x.to(dtype)
 
+    def shifts(off, u, w):
+        k_true = torch.floor(off)
+        return (k_true.clamp(-(u + 2), w).to(torch.int32),
+                (off - k_true).to(torch.float32))
+
+    return uniform, taps, rows_of, shifts
+
+
+def f32_pass_cases(torch, dev):
+    """Kernel 4's f32-tap calls of precision="f32" at the recipe's shapes:
+    pass 1, (3, 256, 224, 224) uint8 with area taps (256, 128, 384) at
+    slopes 1.0-2.5 -> f32; pass 2, (3, 256, 128, 224) f32 with taps (256,
+    128, 256) at slopes 1.0-1.75 -> f32."""
+    uniform, taps, rows_of, shifts = matmul_inputs(torch, dev, SEED + 23)
+    b = 2 * MICROBATCH
+    p1 = rows_of((3, b, 224, 224), torch.uint8)
+    p2 = rows_of((3, b, 128, 224), torch.float32)
+    k1, f1 = shifts(uniform(b * 224, -424.0, 264.0), 384, 224)
+    k2, f2 = shifts(uniform(b * 128, -296.0, 264.0), 256, 224)
+    return [
+        ("matmul_pass1_f32_taps_u8_to_f32", p1, k1, f1,
+         taps(b, 384, 128, 1.0, 2.5, torch.float32), torch.float32, 1e-2),
+        ("matmul_pass2_f32_taps_to_f32", p2, k2, f2,
+         taps(b, 256, 128, 1.0, 1.75, torch.float32), torch.float32, 1e-2),
+    ]
+
+
+def phase_matmul_kernel(torch, dev):
+    """Kernel 4 at the matmul route's shapes of the pretrain recipe, with
+    area tap matrices of the recipe's slopes, bf16 taps: pass 1 (3, 256,
+    224, 224) uint8, taps (256, 128, 384) -> (3, 256, 128, 224) bf16; pass 2
+    (3, 256, 128, 224) bf16, taps (256, 128, 256) -> (3, 256, 128, 128) f32;
+    and the same passes with the f32 taps of precision="f32"; an odd row
+    count; clamped rows; dense taps (the band is all of U: the worst case);
+    tent taps of an upscale; all-zero taps; U = 100 and M = 72 (scalar tap
+    staging, ragged tiles): each case with bf16 and with f32 taps (matmul_row
+    has what each row holds).  Then the band pass alone against its plain
+    version, bit-exact, at the pass-1 and pass-2 taps of each type."""
+    from peclr_tpu_torch.ops.shift_lerp_matmul import (
+        BAND_M,
+        BAND_M_F32,
+        tap_band,
+        tap_band_plain,
+    )
+    from peclr_tpu_torch.ops.warp_mxu import _tent_matrix
+
+    check(BAND_WALK == {"torch.bfloat16": (BAND_M, 16),
+                        "torch.float32": (BAND_M_F32, 4)},
+          f"BAND_WALK {BAND_WALK} is not the kernel's tiles")
+    uniform, taps, rows_of, shifts = matmul_inputs(torch, dev, SEED + 11)
+    b = 2 * MICROBATCH
     p1 = rows_of((3, b, 224, 224), torch.uint8)
     p2 = rows_of((3, b, 128, 224), torch.bfloat16)
     odd = rows_of((3, 4, 1001, 224), torch.uint8)
@@ -738,94 +863,55 @@ def phase_matmul_kernel(torch, dev):
     clamped = torch.cat([uniform(n1 // 2, -5000.0, -(384 + 3.0)),
                          uniform(n1 - n1 // 2, 225.0, 5000.0)])
     dense = uniform((b, 128, 384), 0.0, 1.0)  # nonzero everywhere, rows sum to 1
-    dense = (dense / dense.sum(dim=2, keepdim=True)).to(torch.bfloat16)
-    pass1_taps = taps(b, 384, 128, 1.0, 2.5, torch.bfloat16)
-    pass2_taps = taps(b, 256, 128, 1.0, 1.75, torch.bfloat16)
+    dense = dense / dense.sum(dim=2, keepdim=True)
+    pass1_taps = taps(b, 384, 128, 1.0, 2.5, torch.float32)
+    pass2_taps = taps(b, 256, 128, 1.0, 1.75, torch.float32)
     # the all-flags pass 1 (bf16 sources) as the pretrain step makes it
     (ab, ka, fa, wa), kwa = ablation_pass1_call(torch, dev, "matmul")
+    k1, f1 = shifts(uniform(n1, -424.0, 264.0), 384, 224)
+    k2, f2 = shifts(uniform(b * 128, -296.0, 264.0), 256, 224)
+    ko, fo = shifts(uniform(4 * 1001, -424.0, 264.0), 384, 224)
+    kc, fc = shifts(clamped, 384, 224)
+    kr, fr = shifts(uniform(64 * 130, -140.0, 264.0), 100, 224)
+    odd_taps = taps(4, 384, 128, 1.0, 2.5, torch.float32)
+    tent = taps(b, 384, 128, 0.5, 1.0, torch.float32, _tent_matrix)
+    zero = torch.zeros((b, 128, 384), device=dev)
+    ragged_taps = taps(64, 100, 72, 1.0, 1.35, torch.float32)
+    bf16, f32 = torch.bfloat16, torch.float32
     cases = [
-        ("matmul_ablation_pass1_bf16_to_bf16", ab, (ka, fa), wa,
+        ("matmul_ablation_pass1_bf16_to_bf16", ab, ka, fa, wa,
          kwa["out_dtype"], 1.0),
-        ("matmul_pass1_u8_to_bf16", p1, uniform(n1, -424.0, 264.0),
-         pass1_taps, torch.bfloat16, 1.0),
-        ("matmul_pass2_bf16_to_f32", p2, uniform(b * 128, -296.0, 264.0),
-         pass2_taps, torch.float32, 1e-2),
-        ("matmul_pass2_f32_taps_to_f32", p2.float(),
-         uniform(b * 128, -296.0, 264.0),
-         taps(b, 256, 128, 1.0, 1.75, torch.float32), torch.float32, 1e-2),
-        ("matmul_odd_r_1001_u8_to_f32", odd, uniform(4 * 1001, -424.0, 264.0),
-         taps(4, 384, 128, 1.0, 2.5, torch.bfloat16), torch.float32, 1e-2),
-        ("matmul_clamped_rows_u8_to_f32", p1, clamped,
-         taps(b, 384, 128, 1.0, 2.5, torch.bfloat16), torch.float32, 1e-2),
-        ("matmul_pass1_dense_taps_u8_to_bf16", p1, uniform(n1, -424.0, 264.0),
-         dense, torch.bfloat16, 1.0),
-        ("matmul_pass1_tent_taps_u8_to_bf16", p1, uniform(n1, -424.0, 264.0),
-         taps(b, 384, 128, 0.5, 1.0, torch.bfloat16, _tent_matrix),
-         torch.bfloat16, 1.0),
-        ("matmul_zero_taps_u8_to_f32", p1, uniform(n1, -424.0, 264.0),
-         torch.zeros((b, 128, 384), device=dev, dtype=torch.bfloat16),
-         torch.float32, 1e-2),
-        ("matmul_ragged_u100_m72", ragged, uniform(64 * 130, -140.0, 264.0),
-         taps(64, 100, 72, 1.0, 1.35, torch.bfloat16), torch.float32, 1e-2),
+        ("matmul_pass1_u8_to_bf16", p1, k1, f1, pass1_taps.to(bf16), bf16, 1.0),
+        ("matmul_pass2_bf16_to_f32", p2, k2, f2, pass2_taps.to(bf16), f32,
+         1e-2),
     ]
-    results = []
-    for name, rows4, off, w_t, out_dtype, tol in cases:
-        g, nb, r, w = rows4.shape
-        u = w_t.shape[2]
-        if isinstance(off, tuple):  # a captured call's own k and f
-            k, f = off
-        else:
-            k_true = torch.floor(off)
-            k = k_true.clamp(-(u + 2), w).to(torch.int32)
-            f = (off - k_true).to(torch.float32)
-
-        def kern():
-            return fused_shift_lerp_matmul(rows4, k, f, w_t, out_dtype)
-
-        def plain():
-            return shift_lerp_matmul_plain(rows4, k, f, w_t, out_dtype)
-
-        def grouped_route():
-            win = fused_shift_lerp_grouped(rows4.view(g, nb * r, w), k, f, u,
-                                           out_dtype=w_t.dtype)
-            win = win.view(g, nb, r, u).transpose(-1, -2)
-            if out_dtype == torch.float32:
-                return torch.matmul(w_t.float(), win.float())
-            return torch.matmul(w_t, win)
-
-        got, ref = kern(), plain()
-        torch.cuda.synchronize()
-        max_abs = (got.float() - ref.float()).abs().max().item()
-        check(max_abs <= tol, f"{name}: max_abs {max_abs} > {tol}")
-        check(bool(torch.isfinite(got).all()), f"{name}: not finite")
-        if name.startswith(("matmul_clamped", "matmul_zero")):
-            check(got.abs().max().item() == 0, f"{name}: output not zero")
-        band_taps_mean = None  # the f32-taps path walks all of U
-        if w_t.dtype == torch.bfloat16:
-            band_taps_mean = rounded_band_mean(tap_band_plain(w_t), u)
-        (bound, bound_by, dense_ms, moved) = matmul_bound(rows4, k, w_t, got)
-        row = {
-            "case": name, "shape_in": list(rows4.shape),
-            "taps": list(w_t.shape), "in_dtype": str(rows4.dtype),
-            "taps_dtype": str(w_t.dtype), "out_dtype": str(got.dtype),
-            "max_abs": max_abs, "tolerance": tol,
-            "ms": cuda_ms(kern, 10), "device_ms": device_ms(kern, 10),
-            "plain_ms": cuda_ms(plain, 3),
-            "bound_ms": bound, "bound_by": bound_by, "bytes_moved": moved,
-            "dense_taps_ops_ms": dense_ms,
-            "library_ms": None,  # no one PyTorch call shifts, lerps and multiplies
-            "grouped_route_ms": cuda_ms(grouped_route, 10),
-            "band_taps_mean": band_taps_mean,
-        }
-        results.append(row)
-        emit("kernel", **row)
+    for suffix, dtype in (("", bf16), ("_f32_taps", f32)):
+        cases += [
+            (f"matmul_odd_r_1001{suffix}_u8_to_f32", odd, ko, fo,
+             odd_taps.to(dtype), f32, 1e-2),
+            (f"matmul_clamped_rows{suffix}_u8_to_f32", p1, kc, fc,
+             pass1_taps.to(dtype), f32, 1e-2),
+            (f"matmul_pass1_dense_taps{suffix}_u8_to_bf16", p1, k1, f1,
+             dense.to(dtype), bf16, 1.0),
+            (f"matmul_pass1_tent_taps{suffix}_u8_to_bf16", p1, k1, f1,
+             tent.to(dtype), bf16, 1.0),
+            (f"matmul_zero_taps{suffix}_u8_to_f32", p1, k1, f1, zero.to(dtype),
+             f32, 1e-2),
+            (f"matmul_ragged_u100_m72{suffix}", ragged, kr, fr,
+             ragged_taps.to(dtype), f32, 1e-2),
+        ]
+    cases += f32_pass_cases(torch, dev)
+    results = [matmul_row(torch, *case) for case in cases]
 
     # the band pass alone: bit-exact; bound by reading the taps once.  It is
     # timed in turns over copies of the taps that together outgrow the
     # card's 50 MB L2, so that each call reads its taps from HBM.
-    for name, w_t in (("tap_band_pass1", pass1_taps),
-                      ("tap_band_pass2", pass2_taps)):
-        got, ref = tap_band(w_t), tap_band_plain(w_t)
+    for name, w_t in (("tap_band_pass1", pass1_taps.to(bf16)),
+                      ("tap_band_pass2", pass2_taps.to(bf16)),
+                      ("tap_band_pass1_f32", pass1_taps),
+                      ("tap_band_pass2_f32", pass2_taps)):
+        got = tap_band(w_t)
+        ref = tap_band_plain(w_t, BAND_WALK[str(w_t.dtype)][0])
         torch.cuda.synchronize()
         check(torch.equal(got, ref), f"{name}: band not bit-exact")
         moved = w_t.numel() * w_t.element_size() + got.numel() * 4
@@ -842,10 +928,12 @@ def phase_matmul_kernel(torch, dev):
             "taps_copies": len(copies),
             "ms": cuda_ms(band_in_turns, 20),
             "device_ms": device_ms(band_in_turns, 20),
-            "plain_ms": cuda_ms(lambda: tap_band_plain(w_t), 5),
+            "plain_ms": cuda_ms(lambda: tap_band_plain(
+                w_t, BAND_WALK[str(w_t.dtype)][0]), 5),
             "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
             "library_ms": None,
         }
+        del copies
         results.append(row)
         emit("kernel", **row)
     return results
@@ -2277,6 +2365,304 @@ def phase_ddp(torch, dev, root, trainer_run) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase 7a: the RN50 recipe step in f32 on the matmul route
+
+
+def phase_pretrain_f32_matmul(torch, dev):
+    """One RN50 recipe step at precision="f32" (TF32 off) on the matmul
+    route, kernel 4 with f32 taps, after one warm-up step, and the same step
+    on the grouped route in f32 from the same state with the same draws:
+    2 x 16 launches of the route's kernel and none of the others', the
+    losses within 1e-3 relative (both f32; the routes differ in their
+    order of summation), ms a step and peak memory."""
+    from peclr_tpu_torch.config.defaults import (
+        AugmentationParams,
+        peclr_pretrain_flags,
+    )
+    from peclr_tpu_torch.ops import augment
+    from peclr_tpu_torch.train.recipe import (
+        build_pretrain_state,
+        synthetic_pretrain_batch,
+    )
+    from peclr_tpu_torch.train.step import make_peclr_train_step
+
+    t_phase = time.perf_counter()
+    flags, params = peclr_pretrain_flags(), AugmentationParams()
+    model, state, opt = build_pretrain_state("50", batch=MICROBATCH,
+                                             accum=ACCUM, device=dev)
+    batch = synthetic_pretrain_batch(MICROBATCH * ACCUM, 224, SEED + 7,
+                                     device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    draws = [augment.draw(gen, 2 * MICROBATCH, flags, params)
+             for _ in range(ACCUM)]
+    snapshot = ({k: v.clone() for k, v in model.state_dict().items()},
+                copy.deepcopy(opt.state_dict()))
+    kernel_of = {"matmul": "shift_lerp_matmul",
+                 "grouped": "shift_lerp_grouped"}
+    steps = {route: make_peclr_train_step(model, opt, flags, params,
+                                          accum=ACCUM, warp_route=route,
+                                          precision="f32")
+             for route in kernel_of}
+    steps["matmul"](state, batch, gen, draws=draws)  # the warm-up
+    runs = {}
+    for route in kernel_of:  # the main path first, then its yardstick
+        model.load_state_dict(snapshot[0])
+        opt.load_state_dict(snapshot[1])
+        state.step = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        state, metrics = steps[route](state, batch, gen, draws=draws)
+        loss = metrics["loss"].item()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = kernel_counts()
+        check(math.isfinite(loss), f"f32 {route}: loss not finite")
+        for kname, launched in counts.items():
+            want = 2 * ACCUM if kname == kernel_of[route] else 0
+            check(launched == want, f"f32 {route}: {kname} launched "
+                  f"{launched} times in a step, want {want}")
+        runs[route] = {"loss": loss, "launches": counts,
+                       "ms_per_step": seconds * 1e3,
+                       "img_per_s": MICROBATCH * ACCUM / seconds,
+                       "peak_mem_bytes": torch.cuda.max_memory_allocated(dev)}
+    rel = abs(runs["matmul"]["loss"] / runs["grouped"]["loss"] - 1.0)
+    check(rel <= 1e-3, f"f32 step matmul vs grouped: loss rel {rel} > 1e-3")
+    emit("pretrain_f32_matmul", model="PeCLR RN50 + projection head, f32, "
+         "TF32 off", microbatch=MICROBATCH, accum=ACCUM,
+         images_per_step=MICROBATCH * ACCUM, loss_rel_vs_grouped=rel,
+         tolerance=1e-3, runs=runs,
+         phase_seconds=time.perf_counter() - t_phase)
+    del model, state, opt, batch, snapshot, steps
+    torch.cuda.empty_cache()
+    return runs
+
+
+# --------------------------------------------------------------------------
+# phase 6a: the host's waits on the card
+
+
+def host_waits(torch, fn) -> list:
+    """Run fn() once under torch.cuda.set_sync_debug_mode("warn") and
+    return each wait on the card that torch reports (a copy from pageable
+    host memory, .item(), a checked linalg call, ...) as its innermost call
+    sites in this repository; a wait in a backward pass is reported at its
+    .backward()."""
+    import traceback
+    import warnings
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    waits = []
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        # not the note that the debug mode is a prototype
+        if "called a synchronizing CUDA operation" in str(message):
+            waits.append([f"{os.path.relpath(fr.filename, root)}:{fr.lineno}"
+                          for fr in traceback.extract_stack()[:-1]
+                          if fr.filename.startswith(root)][-4:])
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return waits
+
+
+def host_ms_behind_busy_card(torch, fn, busy_ms: float) -> float:
+    """The host's time in fn() (ms) while the card works through a spin
+    kernel of about busy_ms queued just before it: about busy_ms or more
+    when fn waits for the card anywhere, fn's own host time otherwise.
+    Unlike host_waits it also sees waits that torch does not report (a
+    library's own synchronisation)."""
+    probe = 10_000_000
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    torch.cuda._sleep(probe)
+    end.record()
+    end.synchronize()
+    torch.cuda._sleep(int(probe * busy_ms / start.elapsed_time(end)))
+    t0 = time.perf_counter()
+    fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    return host_ms
+
+
+def host_wait_paths(torch, dev, rn50, x0, K0) -> dict:
+    """The paths whose waits phase_host_waits counts, each a function of no
+    argument: the pretrain step (RN18 at the dry-run shape, 64 -> 32,
+    accum 2) with the recipe's flags and with every flag on each warp route
+    in bf16, and with the recipe's on the matmul route in f32; the
+    fine-tune step (RN18 RN25DPose, 96² canvases to 64² crops, batch 8, the
+    lifted-3D loss); one two-pass leaderboard batch of `rn50` from the
+    frames x0 and intrinsics K0 on the card to kp3d; one
+    InferenceSession._predict of `rn50` (32 x 128², from numpy)."""
+    from peclr_tpu_torch.config.defaults import (
+        AugmentationFlags,
+        AugmentationParams,
+        peclr_pretrain_flags,
+    )
+    from peclr_tpu_torch.data.synthetic import seeded_rn25d_variables
+    from peclr_tpu_torch.eval.pred_fh import run_two_pass
+    from peclr_tpu_torch.eval.serving import InferenceSession
+    from peclr_tpu_torch.models import RN25DPose
+    from peclr_tpu_torch.models.port import rn25d_variables_to_state_dict
+    from peclr_tpu_torch.train.finetune import make_finetune_step
+    from peclr_tpu_torch.train.optimizer import build_optimizer
+    from peclr_tpu_torch.train.recipe import (
+        build_pretrain_state,
+        synthetic_pretrain_batch,
+        synthetic_supervised_batch,
+    )
+    from peclr_tpu_torch.train.state import TrainState
+    from peclr_tpu_torch.train.step import make_peclr_train_step
+
+    paths = {}
+    model, state, opt = build_pretrain_state("18", batch=4, accum=2,
+                                             device=dev)
+    batch = synthetic_pretrain_batch(8, canvas=64, seed=SEED + 24, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 25)
+    params = AugmentationParams(resize_shape=(32, 32))
+    cases = [(f, r, "bf16") for f in ("recipe", "all_flags")
+             for r in ABLATION_ROUTES] + [("recipe", "matmul", "f32")]
+    for flags_name, route, precision in cases:
+        flags = (peclr_pretrain_flags() if flags_name == "recipe"
+                 else ablation_flags())
+        step = make_peclr_train_step(model, opt, flags, params, accum=2,
+                                     warp_route=route, precision=precision)
+        paths[f"pretrain_step_{flags_name}_{route}_{precision}"] = (
+            functools.partial(step, state, batch, gen))
+
+    pose = RN25DPose("18")
+    pose.load_state_dict(rn25d_variables_to_state_dict(
+        seeded_rn25d_variables("18", SEED), "18"), strict=True)
+    pose.to(dev)
+    ft_opt, _ = build_optimizer(pose, base_lr=1e-4, batch_size=8, accum=1,
+                                steps_per_epoch=2, epochs=2, optimizer="adam")
+    ft_step = make_finetune_step(
+        pose, ft_opt, AugmentationFlags(crop=True, rotate=True, resize=True),
+        AugmentationParams(resize_shape=(64, 64)), loss_3d_weight=0.1)
+    ft_batch = synthetic_supervised_batch(8, canvas=96, seed=SEED + 26,
+                                          device=dev)
+    paths["finetune_step"] = functools.partial(
+        ft_step, TrainState(pose, ft_opt), ft_batch,
+        torch.Generator(device=dev).manual_seed(SEED + 27))
+
+    paths["run_two_pass_batch"] = functools.partial(run_two_pass, rn50, x0, K0)
+    sess = InferenceSession(rn50, batch_size=32, image_size=128, device=dev)
+    req = np.random.default_rng(SEED + 28).integers(
+        0, 256, (32, 128, 128, 3), dtype=np.uint8)
+    K = np.broadcast_to(np.asarray(((400.0, 0.0, 64.0), (0.0, 400.0, 64.0),
+                                    (0.0, 0.0, 1.0)), np.float32),
+                        (32, 3, 3)).copy()
+    paths["inference_session_predict"] = functools.partial(sess._predict,
+                                                           req, K)
+    return paths
+
+
+def launch_queue_depth(torch, busy_ms: float = 200.0, most: int = 8192) -> int:
+    """How many kernels the host queues behind a busy card before a launch
+    blocks: one-element adds launched behind a spin kernel of busy_ms,
+    counted until one takes over busy_ms / 2 of host time (`most` if none
+    does)."""
+    x = torch.zeros(1, device="cuda")
+    queued = most
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(10_000_000)
+    end.record()
+    end.synchronize()
+    torch.cuda._sleep(int(10_000_000 * busy_ms / start.elapsed_time(end)))
+    for i in range(most):
+        t0 = time.perf_counter()
+        x.add_(1.0)
+        if (time.perf_counter() - t0) * 1e3 > busy_ms / 2:
+            queued = i
+            break
+    torch.cuda.synchronize()
+    return queued
+
+
+def blocking_call(torch, fn, busy_ms: float) -> str:
+    """The call in which fn's host blocked behind a busy card: the function
+    with the most own time under cProfile."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    host_ms_behind_busy_card(torch, lambda: prof.runcall(fn), busy_ms)
+    (path, line, name), stat = max(pstats.Stats(prof).stats.items(),
+                                   key=lambda kv: kv[1][2])
+    return f"{name} ({os.path.basename(path)}:{line}), {stat[2] * 1e3:.1f} ms"
+
+
+def phase_host_waits(torch, dev, rn50, x0, K0, require_none: bool = True):
+    """Each path of host_wait_paths, and torch.linalg.inv_ex of 3 x 3
+    matrices at the batches the paths invert, after one call that builds
+    what it builds on first use: its own host time, the waits torch reports
+    (host_waits, with their call sites) and its host time behind a busy
+    card (host_ms_behind_busy_card, the card busy for 5 times its own host
+    time and at least 250 ms).  The last sees any wait, torch's or a
+    library's, but also the host blocking in a launch once the launch queue
+    is full (launch_queue_depth kernels behind the card), which every step
+    fills; where the host blocked, the call it blocked in (blocking_call).
+    With require_none no path makes a wait torch reports, and the paths
+    that launch fewer kernels than the queue holds (a two-pass batch, a
+    serving request, the inverses) spend under half the busy time behind
+    the card."""
+    t_phase = time.perf_counter()
+    paths = host_wait_paths(torch, dev, rn50, x0, K0)
+    eye = torch.eye(3, device=dev)
+    for n in (8, 32, 120, 128, 256):  # the batches the port inverts
+        mats = eye.expand(n, 3, 3) * torch.rand(n, 1, 1, device=dev) + eye
+        paths[f"linalg_inv_ex_{n}"] = functools.partial(torch.linalg.inv_ex,
+                                                        mats)
+    rows = {}
+    for name, fn in paths.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        own_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        waits = host_waits(torch, fn)
+        torch.cuda.synchronize()
+        busy_ms = max(250.0, 5.0 * own_ms)
+        sites = {}
+        for w in waits:
+            site = " <- ".join(reversed(w))
+            sites[site] = sites.get(site, 0) + 1
+        behind = host_ms_behind_busy_card(torch, fn, busy_ms)
+        rows[name] = {"waits": len(waits), "call_sites": sites,
+                      "host_ms": own_ms, "busy_card_ms": busy_ms,
+                      "host_ms_behind_busy_card": behind}
+        if behind >= busy_ms / 2:
+            rows[name]["blocked_in"] = blocking_call(torch, fn, busy_ms)
+    depth = launch_queue_depth(torch)
+    emit("host_waits", paths=rows, launch_queue_depth=depth,
+         note="after one call of each path; sync debug mode 'warn'",
+         phase_seconds=time.perf_counter() - t_phase)
+    if require_none:
+        for name, row in rows.items():
+            check(row["waits"] == 0, f"{name}: {row['waits']} host waits: "
+                  f"{row['call_sites']}")
+            if not name.startswith(("pretrain_step", "finetune_step")):
+                check(row["host_ms_behind_busy_card"] < row["busy_card_ms"] / 2,
+                      f"{name}: the host took {row['host_ms_behind_busy_card']}"
+                      f" ms behind a card busy for {row['busy_card_ms']} ms")
+    torch.cuda.empty_cache()
+    return rows
+
+
+# --------------------------------------------------------------------------
 # phase 4 / 5 inputs
 
 
@@ -2522,12 +2908,19 @@ def main() -> int:
               and bool(np.isfinite(out["kp3d"]).all()),
               f"serving request of {size}")
     emit("serving", batch=32, image_size=128, requests=latencies)
-    del sess, model, cpu_model
+    del sess, cpu_model
+    torch.cuda.empty_cache()
+
+    # ---- 6a. no path makes the host wait on the card -----------------------------
+    phase_host_waits(torch, dev, model, x0, K0)
+    del model
     torch.cuda.empty_cache()
 
     # ---- 7. the pretrain step ------------------------------------------------------
     pretrain_runs = phase_pretrain(torch, dev)
     phase_pretrain_vs_cpu(torch, dev)
+    # ---- 7a. the recipe step in f32 through kernel 4's f32 taps -----------------
+    f32_runs = phase_pretrain_f32_matmul(torch, dev)
 
     # ---- 8. the trainer through its CLI; 9. fine-tune and evaluate from its
     # checkpoint --------------------------------------------------------------------
@@ -2624,6 +3017,15 @@ def main() -> int:
                     "band_taps_mean"],
                 pass2_ms=matmul_of["matmul_pass2_bf16_to_f32"]["ms"],
                 band_pass_device_ms=matmul_of["tap_band_pass1"]["device_ms"],
+                launches_per_f32_step=f32_runs["matmul"]["launches"][
+                    "shift_lerp_matmul"],
+                f32_taps={case: {key: matmul_of[case][key] for key in (
+                    "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                    "grouped_route_ms", "band_taps_mean", "max_abs")}
+                    for case in ("matmul_pass1_f32_taps_u8_to_f32",
+                                 "matmul_pass2_f32_taps_to_f32")},
+                f32_band_pass_device_ms=matmul_of["tap_band_pass1_f32"][
+                    "device_ms"],
                 launches_per_ablation_step=ablation_run["routes"]["matmul"][
                     "launches"]["shift_lerp_matmul"],
                 ablation_pass1_ms=matmul_of[
@@ -2640,7 +3042,115 @@ def main() -> int:
     return 0
 
 
+def turns_main() -> int:
+    """`--turns`: what compares this tree with another one on one card,
+    each run in its own process, in turns (parent, change, change, parent;
+    the other tree unpacked with this script copied into it): kernel 4's
+    f32-tap passes of the recipe (matmul_row), the host waits of every path
+    (phase_host_waits, not required to be none), the leaderboard's img/s
+    (3 runs of the slice's 4 batches of 120, after one) and the grouped
+    recipe step's ms (2 steps after one) and profiled busy share.  One JSON
+    line {"turns": ...}; only these public functions of the package are
+    used, so that an older tree runs it too."""
+    import torch
+
+    from peclr_tpu_torch import build
+    from peclr_tpu_torch.config.defaults import (
+        AugmentationParams,
+        peclr_pretrain_flags,
+    )
+    from peclr_tpu_torch.data.synthetic import (
+        seeded_frames,
+        seeded_intrinsics,
+        seeded_rn25d_variables,
+    )
+    from peclr_tpu_torch.device import resolve_device
+    from peclr_tpu_torch.eval.pred_fh import (
+        make_two_pass_predictor,
+        padded_batches,
+        pipelined,
+    )
+    from peclr_tpu_torch.models import RN25DPose
+    from peclr_tpu_torch.models.port import rn25d_variables_to_state_dict
+    from peclr_tpu_torch.train.recipe import (
+        build_pretrain_state,
+        synthetic_pretrain_batch,
+    )
+    from peclr_tpu_torch.train.step import make_peclr_train_step
+
+    global CARD
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    CARD = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    dev = resolve_device("cuda")
+    tree = os.path.dirname(os.path.abspath(__file__))
+    build.build(["shift_lerp", "shift_lerp_matmul"])
+    out = {"tree": tree, "card": CARD}
+    out["kernel4_f32"] = {
+        case[0]: {key: row[key] for key in ("ms", "device_ms", "plain_ms",
+                                           "bound_ms", "grouped_route_ms",
+                                           "band_taps_mean", "max_abs")}
+        for case in f32_pass_cases(torch, dev)
+        for row in [matmul_row(torch, *case)]}
+
+    frames = seeded_frames(N_FRAMES, SEED)
+    Ks = seeded_intrinsics(N_FRAMES, SEED + 1)
+    model = RN25DPose("50")
+    model.load_state_dict(rn25d_variables_to_state_dict(
+        seeded_rn25d_variables("50", SEED), "50"), strict=True)
+    model = model.to(dev).eval()
+    x0 = torch.from_numpy(frames[:BATCH]).to(dev)
+    K0 = torch.from_numpy(Ks[:BATCH]).to(dev)
+    out["host_waits"] = phase_host_waits(torch, dev, model, x0, K0,
+                                         require_none=False)
+    predict = make_two_pass_predictor(model, device=dev)
+    slice_img_per_s = []
+    for rep in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = list(pipelined(predict, padded_batches(
+            frames.__getitem__, Ks, N_FRAMES, BATCH), depth=2, device=dev))
+        seconds = time.perf_counter() - t0
+        check(sum(len(kp) for _, kp in got) == N_FRAMES, "leaderboard frames")
+        if rep:
+            slice_img_per_s.append(N_FRAMES / seconds)
+    out["leaderboard_img_per_s"] = slice_img_per_s
+    del model, predict, x0, K0
+    torch.cuda.empty_cache()
+
+    model, state, opt = build_pretrain_state("50", batch=MICROBATCH,
+                                             accum=ACCUM, device=dev)
+    batch = synthetic_pretrain_batch(MICROBATCH * ACCUM, 224, SEED + 7,
+                                     device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    step = make_peclr_train_step(model, opt, peclr_pretrain_flags(),
+                                 AugmentationParams(), accum=ACCUM,
+                                 warp_route="grouped")
+    step_ms = []
+    for rep in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, gen)
+        metrics["loss"].item()
+        torch.cuda.synchronize()
+        if rep:
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    out["pretrain_grouped_step_ms"] = step_ms
+    state, profiled = profile_step(torch, step, state, batch, gen)
+    out["pretrain_grouped_profiled"] = {
+        k: profiled.get(k) for k in ("profiled_wall_ms", "device_busy_ms",
+                                     "device_busy_share", "kernel_launches")}
+    print(json.dumps({"turns": out}), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ddp-cli"]:  # a rank of the ddp phase's CLI run
         sys.exit(ddp_cli_rank(sys.argv[2], sys.argv[3:]))
+    if sys.argv[1:2] == ["--turns"]:  # parent against change, in turns
+        sys.exit(turns_main())
     sys.exit(main())

@@ -305,6 +305,17 @@ def _mapped(batch_iter: Iterable, fn: Callable) -> Iterator:
             close()
 
 
+def host_to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array as a tensor on `device`.  To the card through pinned
+    memory with non_blocking=True: the copy queues behind the work in
+    flight instead of making the host wait for it (a copy from pageable
+    memory does)."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
 def cuda_copier(device: DeviceLike, slots: int = 2) -> Callable:
     """Host batch -> (device batch, copy-done event).  Each batch goes
     through one of `slots` sets of pinned buffers, reused in turn once its

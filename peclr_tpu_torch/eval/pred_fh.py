@@ -24,7 +24,8 @@ import numpy as np
 import torch
 
 from peclr_tpu_torch.data.pipeline import host_prefetch as _host_prefetch
-from peclr_tpu_torch.device import DeviceLike, resolve_device
+from peclr_tpu_torch.data.pipeline import host_to_device
+from peclr_tpu_torch.device import DeviceLike, device_constant, resolve_device
 from peclr_tpu_torch.geometry import affine
 from peclr_tpu_torch.geometry.camera import move_palm_to_wrist
 from peclr_tpu_torch.geometry.joints import permutation
@@ -86,8 +87,8 @@ def run_two_pass(model: torch.nn.Module, images_u8: torch.Tensor,
     their device.  Returns pass 1's kp25d, the refined affine T2 and the
     final kp3d (palm moved back to the wrist)."""
     b = images_u8.shape[0]
-    T0 = torch.as_tensor(initial_affine(), device=images_u8.device)
-    T1 = T0.expand(b, 3, 3)
+    T1 = device_constant(initial_affine().tolist(),
+                         images_u8.device).expand(b, 3, 3)
     K = K.to(torch.float32)
     img1 = _preprocess(images_u8, T1, lerp_in_kernel)
     out1 = model(img1, K=torch.einsum("bij,bjk->bik", T1, K))
@@ -131,15 +132,6 @@ def padded_batches(load: Callable[[int], np.ndarray], K_list: np.ndarray,
         yield idx, pad, imgs, K
 
 
-def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    t = torch.from_numpy(np.ascontiguousarray(arr))
-    if device.type == "cuda":
-        # pinned + non_blocking: the copy queues behind the batch in flight
-        # instead of waiting for it
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.to(device)
-
-
 def pipelined(predict: Callable, batches: Iterable, depth: int,
               device: torch.device) -> Iterator:
     """Dispatch batches with `depth` in flight: launches are asynchronous,
@@ -154,8 +146,8 @@ def pipelined(predict: Callable, batches: Iterable, depth: int,
         return idx, (kp3d[:-pad] if pad else kp3d)
 
     for idx, pad, imgs, K in batches:
-        pending.append((idx, pad, predict(_to_device(imgs, device),
-                                          _to_device(K, device))))
+        pending.append((idx, pad, predict(host_to_device(imgs, device),
+                                          host_to_device(K, device))))
         if len(pending) >= depth:
             yield fetch()
     while pending:

@@ -13,6 +13,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from peclr_tpu_torch.data.pipeline import host_to_device
 from peclr_tpu_torch.device import DeviceLike, resolve_device
 from peclr_tpu_torch.ops.image import normalize_imagenet
 
@@ -45,9 +46,11 @@ class InferenceSession:
 
     @torch.inference_mode()
     def _predict(self, images_u8: np.ndarray, K: np.ndarray):
-        x = torch.from_numpy(images_u8).to(self.device)
+        """One batch; the outputs stay on the device and nothing waits on
+        the card (the inputs go through pinned memory)."""
+        x = host_to_device(images_u8, self.device)
         x = normalize_imagenet(x.to(torch.float32) / 255.0)
-        return self.model(x, K=torch.from_numpy(K).to(self.device))
+        return self.model(x, K=host_to_device(K, self.device))
 
     def warmup(self) -> "InferenceSession":
         """Run one batch before serving traffic (cuDNN picks its kernels)."""

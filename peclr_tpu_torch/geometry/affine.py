@@ -63,7 +63,10 @@ def compose(*mats) -> torch.Tensor:
 
 
 def invert_affine(mat: torch.Tensor) -> torch.Tensor:
-    return torch.linalg.inv(mat)
+    """(..., 3, 3) inverse.  A singular matrix gives non-finite entries, as
+    jnp.linalg.inv does, where torch.linalg.inv would raise; inv_ex checks
+    nothing on the host, so the card's queue is not drained."""
+    return torch.linalg.inv_ex(mat).inverse
 
 
 def apply_affine(mat: torch.Tensor, points: torch.Tensor) -> torch.Tensor:

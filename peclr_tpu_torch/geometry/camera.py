@@ -36,8 +36,10 @@ def convert_to_2_5d(K: torch.Tensor, joints3d: torch.Tensor):
 def root_depth(joints25d: torch.Tensor, K: torch.Tensor):
     """Closed-form scale-normalized Z_root from the wrist (n) and index-mcp
     (m) joints with unit bone length.  Returns (z_root (...,), K_inv
-    (..., 3, 3))."""
-    K_inv = torch.linalg.inv(K)
+    (..., 3, 3)); a singular K gives non-finite values, as in the reference,
+    where torch.linalg.inv would raise (inv_ex checks nothing on the host,
+    so the card's queue is not drained)."""
+    K_inv = torch.linalg.inv_ex(K).inverse
 
     def backproject(joint_uv):
         hom = torch.cat([joint_uv, torch.ones_like(joint_uv[..., :1])], dim=-1)

@@ -12,6 +12,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from peclr_tpu_torch.device import device_constant
 from peclr_tpu_torch.models.heads import ZrootRefineMLP
 from peclr_tpu_torch.models.resnet import ResNet
 
@@ -21,6 +22,8 @@ K_DEFAULT = (
     (0.0, 388.71231836584275, 112.0),
     (0.0, 0.0, 1.0),
 )
+#: the wrist's root-relative depth, which is 0 by definition
+_WRIST_Z = tuple(tuple(j == 0 and c == 2 for c in range(3)) for j in range(21))
 
 
 class RN25DPose(nn.Module):
@@ -41,18 +44,17 @@ class RN25DPose(nn.Module):
                 K: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         batch = images.shape[0]
         if K is None:
-            K = torch.tensor(K_DEFAULT, dtype=torch.float32,
-                             device=images.device).expand(batch, 3, 3)
+            K = device_constant(K_DEFAULT, images.device).expand(batch, 3, 3)
         out = self.backend_model(images.permute(0, 3, 1, 2))
         kp25d = out[:, :-1].reshape(batch, 21, 3)
-        # the wrist's root-relative depth is 0 by definition
-        wrist_z = torch.zeros(21, 3, dtype=torch.bool, device=images.device)
-        wrist_z[0, 2] = True
+        wrist_z = device_constant(_WRIST_Z, images.device, torch.bool)
         kp25d = torch.where(wrist_z, 0.0, kp25d)
         kp2d = kp25d[..., :2]
         zrel = kp25d[..., 2:3]
         kp2d_h = torch.cat([kp2d, torch.ones_like(zrel)], dim=2)
-        K_inv = torch.linalg.inv(K)
+        # inv_ex: no error check on the host (that would wait for the card);
+        # a singular K gives non-finite rows, as jnp.linalg.inv does
+        K_inv = torch.linalg.inv_ex(K).inverse
         kp3d_unnorm = torch.einsum("bnj,bij->bni", kp2d_h, K_inv)
         zroot = self.zroot_ref(kp3d_unnorm, zrel)
         kp3d = kp3d_unnorm * (zrel + zroot[:, None, None])

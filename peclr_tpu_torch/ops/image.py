@@ -14,6 +14,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from peclr_tpu_torch.device import device_constant
+
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
@@ -25,8 +27,8 @@ _SOBEL_XY = ((-2.0, -2.0, 0.0), (-2.0, 0.0, 2.0), (0.0, 2.0, 2.0))
 
 
 def _imagenet_stats(device):
-    return (torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=device),
-            torch.tensor(IMAGENET_STD, dtype=torch.float32, device=device))
+    return (device_constant(IMAGENET_MEAN, device),
+            device_constant(IMAGENET_STD, device))
 
 
 def normalize_imagenet(images_01: torch.Tensor) -> torch.Tensor:
@@ -43,7 +45,7 @@ def denormalize_imagenet(images: torch.Tensor) -> torch.Tensor:
 
 def _gray(images: torch.Tensor) -> torch.Tensor:
     """(B, H, W, 3) -> (B, H, W) with the storage-order cv2 weights."""
-    w = torch.tensor(_GRAY_W, dtype=torch.float32, device=images.device)
+    w = device_constant(_GRAY_W, images.device)
     return torch.einsum("bhwc,c->bhw", images, w)
 
 
@@ -57,8 +59,7 @@ def sobel_filter(images: torch.Tensor, ksize: int = 3) -> torch.Tensor:
     and replicated to 3 channels.  `ksize` is taken and ignored, as in the
     reference."""
     del ksize
-    kernel = torch.tensor(_SOBEL_XY, dtype=torch.float32,
-                          device=images.device)[None, None]
+    kernel = device_constant(_SOBEL_XY, images.device)[None, None]
     out = F.conv2d(_gray(images)[:, None], kernel, padding=1)[:, 0]
     return torch.clamp(out, 0.0, 255.0)[..., None].expand(
         *images.shape[:3], 3).contiguous()

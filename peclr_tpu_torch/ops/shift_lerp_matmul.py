@@ -13,15 +13,15 @@ with the shift semantics of the grouped kernel (ops/shift_lerp.py): taps
 outside [0, W) read zero and a clamped row comes out zero.  The output is
 transposed (m before r), the layout the warp's next pass reads.
 
-With bf16 taps the kernel first finds each tile's band, the range of u where
-the taps of BAND_M outputs are not zero (`tap_band`), and multiplies only
-that range.
+The kernel first finds each tile's band, the range of u where the taps of
+the tile's outputs are not zero (`tap_band`; tiles of BAND_M outputs for
+bf16 taps, BAND_M_F32 for f32 taps), and multiplies only that range.
 
 `fused_shift_lerp_matmul` launches the kernel for CUDA tensors and counts
-each call in `fused_shift_lerp_matmul.launches` (with bf16 taps a call is
-two launches, the band pass and the product); CPU tensors take
-`shift_lerp_matmul_plain`: the grouped shift's plain version, then a dense
-f32 einsum.  `tap_band` and `tap_band_plain` give the band pass alone.
+each call in `fused_shift_lerp_matmul.launches` (a call is two launches,
+the band pass and the product); CPU tensors take `shift_lerp_matmul_plain`:
+the grouped shift's plain version, then a dense f32 einsum.  `tap_band` and
+`tap_band_plain` give the band pass alone.
 """
 
 from __future__ import annotations
@@ -38,7 +38,13 @@ from peclr_tpu_torch.ops.shift_lerp import (
     shift_lerp_grouped_plain,
 )
 
-BAND_M = 32  # outputs m per band tile (kBandM of the CUDA source)
+BAND_M = 32  # outputs m per band tile of bf16 taps (kBandM of the CUDA source)
+BAND_M_F32 = 8  # outputs m per band tile of f32 taps (kF32TileM)
+
+
+def band_tile(dtype: torch.dtype) -> int:
+    """Outputs m per band tile for taps of this type."""
+    return BAND_M if dtype == torch.bfloat16 else BAND_M_F32
 
 
 def tap_band_plain(w_t: torch.Tensor, bm: int = BAND_M) -> torch.Tensor:
@@ -113,17 +119,27 @@ def _library() -> ctypes.CDLL:
         ]
         lib.peclr_tap_band.restype = ctypes.c_int
         lib.peclr_tap_band.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
-        lib.peclr_tap_band_m.restype = ctypes.c_int
-        lib.peclr_tap_band_m.argtypes = []
         lib.peclr_cuda_error_string.restype = ctypes.c_char_p
         lib.peclr_cuda_error_string.argtypes = [ctypes.c_int]
-        if lib.peclr_tap_band_m() != BAND_M:
-            raise RuntimeError("csrc/shift_lerp_matmul.cu tiles the band by "
-                               f"{lib.peclr_tap_band_m()} outputs, not {BAND_M}")
+        for name, want in (("peclr_tap_band_m", BAND_M),
+                           ("peclr_tap_band_m_f32", BAND_M_F32)):
+            getter = getattr(lib, name)
+            getter.restype = ctypes.c_int
+            getter.argtypes = []
+            if getter() != want:
+                raise RuntimeError(f"csrc/shift_lerp_matmul.cu tiles the band "
+                                   f"by {getter()} outputs ({name}), not "
+                                   f"{want}")
     return lib
+
+
+def _band_scratch(w_t: torch.Tensor) -> torch.Tensor:
+    b, m, _ = w_t.shape
+    return torch.empty((b, -(-m // band_tile(w_t.dtype)), 2),
+                       dtype=torch.int32, device=w_t.device)
 
 
 def fused_shift_lerp_matmul(rows4: torch.Tensor, k: torch.Tensor,
@@ -134,11 +150,11 @@ def fused_shift_lerp_matmul(rows4: torch.Tensor, k: torch.Tensor,
     row shifts, R-major per image; w_t (B, M, U) bf16/f32 taps, transposed
     -> (G, B, M, R) out_dtype (bf16 or f32).  Any G, B, R, W, U and M.
 
-    With bf16 taps on the card only each tile's band of nonzero taps is
-    multiplied.  The skipped terms are taps of exactly zero, so the f32 sums
-    are those of the dense product while the window is finite; a non-finite
-    source value can propagate differently from the dense product (Inf * 0
-    is NaN there and skipped here)."""
+    On the card only each tile's band of nonzero taps is multiplied, with
+    bf16 and with f32 taps.  The skipped terms are taps of exactly zero, so
+    the f32 sums are those of the dense product while the window is finite;
+    a non-finite source value can propagate differently from the dense
+    product (Inf * 0 is NaN there and skipped here)."""
     if rows4.device.type == "cpu":
         return shift_lerp_matmul_plain(rows4, k, f, w_t, out_dtype)
     if rows4.device.type != "cuda":
@@ -147,17 +163,14 @@ def fused_shift_lerp_matmul(rows4: torch.Tensor, k: torch.Tensor,
     g, b, r, w = rows4.shape
     _, m, u = w_t.shape
     out = torch.empty((g, b, m, r), dtype=out_dtype, device=rows4.device)
-    band = None
-    if w_t.dtype == torch.bfloat16:  # scratch of the band pass
-        band = torch.empty((b, -(-m // BAND_M), 2), dtype=torch.int32,
-                           device=rows4.device)
+    band = _band_scratch(w_t)
     lib = _library()
     with torch.cuda.device(rows4.device):
         stream = torch.cuda.current_stream(rows4.device).cuda_stream
         rc = lib.peclr_shift_lerp_matmul(
             rows4.data_ptr(), _DTYPE_CODES[rows4.dtype], k.data_ptr(),
             f.data_ptr(), w_t.data_ptr(), _DTYPE_CODES[w_t.dtype],
-            None if band is None else band.data_ptr(), out.data_ptr(),
+            band.data_ptr(), out.data_ptr(),
             _DTYPE_CODES[out_dtype], g, b, r, w, u, m, stream,
         )
     if rc == -2:
@@ -171,27 +184,26 @@ fused_shift_lerp_matmul.launches = 0
 
 
 def tap_band(w_t: torch.Tensor) -> torch.Tensor:
-    """The band pass alone (the first launch of a call with bf16 taps):
-    w_t (B, M, U) bf16 -> int32 (B, ceil(M / BAND_M), 2), as tap_band_plain.
-    Counted in `tap_band.launches`."""
+    """The band pass alone (the first launch of a call): w_t (B, M, U) bf16
+    or f32 -> int32 (B, ceil(M / T), 2) with T = band_tile(w_t.dtype), as
+    tap_band_plain.  Counted in `tap_band.launches`."""
     if w_t.device.type == "cpu":
-        return tap_band_plain(w_t)
+        return tap_band_plain(w_t, band_tile(w_t.dtype))
     if w_t.device.type != "cuda":
         raise ValueError(f"no band kernel for device {w_t.device}")
-    if w_t.dim() != 3 or w_t.dtype != torch.bfloat16:
-        raise TypeError("w_t must be (B, M, U) bf16")
+    if w_t.dim() != 3 or w_t.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError("w_t must be (B, M, U) bf16 or f32")
     if not w_t.is_contiguous():
         raise ValueError("w_t must be contiguous")
     if max(w_t.shape) > _INT32_MAX:
         raise ValueError("every dimension must fit int32")
     b, m, u = w_t.shape
-    band = torch.empty((b, -(-m // BAND_M), 2), dtype=torch.int32,
-                       device=w_t.device)
+    band = _band_scratch(w_t)
     lib = _library()
     with torch.cuda.device(w_t.device):
         stream = torch.cuda.current_stream(w_t.device).cuda_stream
-        rc = lib.peclr_tap_band(w_t.data_ptr(), band.data_ptr(), b, m, u,
-                                stream)
+        rc = lib.peclr_tap_band(w_t.data_ptr(), _DTYPE_CODES[w_t.dtype],
+                                band.data_ptr(), b, m, u, stream)
     _raise_on(rc, lib, "tap_band")
     tap_band.launches += 1
     return band

@@ -22,7 +22,9 @@ def affine_warp(images: torch.Tensor, matrices: torch.Tensor, out_hw,
     out_h, out_w = out_hw
     device = images.device
     flat = images.to(torch.float32).reshape(b, src_h * src_w, c)
-    inv = torch.linalg.inv(matrices.to(device=device, dtype=torch.float32))
+    # inv_ex: no error check on the host, which would wait for the card
+    inv = torch.linalg.inv_ex(
+        matrices.to(device=device, dtype=torch.float32)).inverse
 
     ys = torch.arange(out_h, dtype=torch.float32, device=device)
     xs = torch.arange(out_w, dtype=torch.float32, device=device)

@@ -719,9 +719,10 @@ def test_batchnorm_across_ranks_on_the_card(card):
 
 def _host_waits_rank(mesh):
     """The host's waits on the card in one RN18 step, counted by
-    torch.cuda.set_sync_debug_mode("warn"), without a mesh and with this
-    one NCCL rank's, each after two steps that make DDP's buckets and warm
-    the libraries up."""
+    torch.cuda.set_sync_debug_mode("warn") (its warnings that an operation
+    synchronised, not its note that the mode is a prototype), without a
+    mesh and with this one NCCL rank's, each after two steps that make
+    DDP's buckets and warm the libraries up."""
     import warnings
 
     from peclr_tpu_torch.config.defaults import (
@@ -758,17 +759,187 @@ def _host_waits_rank(mesh):
                 state, metrics = step(state, batch, gen)
             finally:
                 torch.cuda.set_sync_debug_mode("default")
-        counts[name] = sum("synchronizing" in str(w.message) for w in caught)
+        counts[name] = sum("called a synchronizing CUDA operation"
+                           in str(w.message) for w in caught)
     return counts
 
 
 def test_data_parallel_step_adds_no_host_waits(card):
     """The data-parallel step (one NCCL rank: the collectives, the cross-
     rank BatchNorm, DDP, the rank's draws) makes the host wait on the card
-    no more often than the single-process step: each wait holds the next
-    launches back behind the card's queue."""
+    no more often than the single-process step, which makes no wait: each
+    wait holds the next launches back behind the card's queue."""
     from peclr_tpu_torch.parallel.dryrun import spawn
 
     (counts,) = spawn(_host_waits_rank, 1, device="cuda:0", backend="nccl",
                       timeout=300.0)
-    assert counts["mesh"] <= counts["plain"], counts
+    assert counts["mesh"] == counts["plain"] == 0, counts
+
+
+def _f32_tap_inputs(rng, card, case):
+    """Kernel 4's f32-tap cases: G = 3 planes of 5 images, uint8 or f32
+    sources, shifts past both clamps, f32 taps."""
+    g, b, r, w = 3, 5, 70, 224
+    src, u, m, taps = {
+        "area_u8": ("u8", 384, 130, "area"),
+        "area_f32_source": ("f32", 256, 128, "area"),
+        "tent_u8": ("u8", 384, 130, "tent"),
+        "dense_f32_source": ("f32", 384, 64, "dense"),
+        "zero_u8": ("u8", 384, 130, "zero"),
+        "ragged_u100_m72_r40": ("u8", 100, 72, "area"),
+    }[case]
+    if case.startswith("ragged"):
+        r = 40
+    if src == "u8":
+        x = torch.from_numpy(rng.integers(0, 256, (g, b, r, w)).astype(np.uint8))
+    else:
+        x = torch.from_numpy(rng.uniform(0, 255, (g, b, r, w)).astype(np.float32))
+    off = rng.uniform(-(u + 40), w + 40, (b * r,))
+    k = torch.from_numpy(np.clip(np.floor(off), -(u + 2), w).astype(np.int32))
+    f = torch.from_numpy((off - np.floor(off)).astype(np.float32))
+    if taps == "dense":
+        w_t = rng.uniform(0, 1, (b, m, u)).astype(np.float32)
+        w_t = torch.from_numpy(w_t / w_t.sum(axis=2, keepdims=True))
+    elif taps == "zero":
+        w_t = torch.zeros((b, m, u))
+    else:
+        from peclr_tpu_torch.ops.warp_mxu import _tent_matrix
+
+        matrix = _area_matrix if taps == "area" else _tent_matrix
+        slopes = (1.0, 2.5) if taps == "area" else (0.5, 1.0)
+        s = torch.from_numpy(rng.uniform(*slopes, (b,)).astype(np.float32))
+        w_t = matrix(s, u, m, transposed=True)
+    return x.to(card), k.to(card), f.to(card), w_t.to(card)
+
+
+@pytest.mark.parametrize("case", ["area_u8", "area_f32_source", "tent_u8",
+                                  "dense_f32_source", "zero_u8",
+                                  "ragged_u100_m72_r40"])
+def test_f32_tap_kernel_matches_plain(card, case):
+    """Kernel 4 with f32 taps (band-limited tiles of 8 outputs, CUDA-core
+    FMAs) against its dense plain version on the card: f32 out within 1e-2
+    (sum order), bf16 out within 1.0; zero taps give exactly 0; one counted
+    launch a call."""
+    rng = np.random.default_rng(12)
+    x, k, f, w_t = _f32_tap_inputs(rng, card, case)
+    launches = fused_shift_lerp_matmul.launches
+    for out_dtype, tol in ((torch.float32, 1e-2), (torch.bfloat16, 1.0)):
+        got = fused_shift_lerp_matmul(x, k, f, w_t, out_dtype)
+        ref = shift_lerp_matmul_plain(x, k, f, w_t, out_dtype)
+        torch.cuda.synchronize()
+        assert got.shape == ref.shape and got.dtype == out_dtype
+        assert bool(torch.isfinite(got).all())
+        assert (got.float() - ref.float()).abs().max().item() <= tol
+        if case == "zero_u8":
+            assert got.abs().max().item() == 0
+    assert fused_shift_lerp_matmul.launches == launches + 2
+
+
+def test_f32_tap_band_kernel_is_bit_exact(card):
+    """The band pass on f32 taps (tiles of BAND_M_F32 outputs) against its
+    plain version: sparse taps with empty tiles, -0 as zero, U a multiple
+    of 4 (16-byte loads) and not (scalar loads)."""
+    from peclr_tpu_torch.ops.shift_lerp_matmul import BAND_M_F32
+
+    rng = np.random.default_rng(13)
+    for u in (384, 100, 37):
+        taps = rng.uniform(-1, 1, (5, 130, u)).astype(np.float32)
+        taps[rng.uniform(0, 1, taps.shape) > 0.02] = 0
+        taps[1, :64] = -0.0
+        taps[2] = 0
+        w_t = torch.from_numpy(taps).to(card)
+        launches = tap_band.launches
+        got = tap_band(w_t)
+        torch.cuda.synchronize()
+        assert tap_band.launches == launches + 1
+        assert got.shape == (5, -(-130 // BAND_M_F32), 2)
+        assert torch.equal(got.cpu(), tap_band_plain(w_t.cpu(), BAND_M_F32))
+
+
+_WAIT_PATHS = ([f"pretrain_{flags}_{route}_bf16"
+                for flags in ("recipe", "all_flags")
+                for route in ("grouped", "nhwc", "matmul", "gather")]
+               + ["pretrain_recipe_matmul_f32", "finetune_step",
+                  "run_two_pass", "inference_session"])
+
+
+def _wait_path(name, dev):
+    """One path of the port as a function of no argument, at a small size:
+    the pretrain step (RN18, 64 -> 32, accum 2), the fine-tune step (RN18,
+    96² to 64², batch 8, the lifted-3D loss), one two-pass batch of four
+    224² frames (RN18) and one InferenceSession._predict (RN18, 4 x 64²)."""
+    from peclr_tpu_torch.config.defaults import (
+        AugmentationFlags,
+        AugmentationParams,
+        peclr_pretrain_flags,
+    )
+    from peclr_tpu_torch.data.synthetic import (
+        seeded_frames,
+        seeded_intrinsics,
+        seeded_rn25d_variables,
+    )
+    from peclr_tpu_torch.eval.pred_fh import run_two_pass
+    from peclr_tpu_torch.eval.serving import InferenceSession
+    from peclr_tpu_torch.models import RN25DPose
+    from peclr_tpu_torch.models.port import rn25d_variables_to_state_dict
+    from peclr_tpu_torch.train.finetune import make_finetune_step
+    from peclr_tpu_torch.train.optimizer import build_optimizer
+    from peclr_tpu_torch.train.recipe import (
+        build_pretrain_state,
+        synthetic_pretrain_batch,
+        synthetic_supervised_batch,
+    )
+    from peclr_tpu_torch.train.state import TrainState
+    from peclr_tpu_torch.train.step import make_peclr_train_step
+
+    if name.startswith("pretrain_"):
+        flags_name, route, precision = name[len("pretrain_"):].rsplit("_", 2)
+        flags = (peclr_pretrain_flags() if flags_name == "recipe"
+                 else _all_flags())
+        model, state, opt = build_pretrain_state("18", batch=4, accum=2,
+                                                 device=dev)
+        step = make_peclr_train_step(
+            model, opt, flags, AugmentationParams(resize_shape=(32, 32)),
+            accum=2, warp_route=route, precision=precision)
+        batch = synthetic_pretrain_batch(8, canvas=64, seed=0, device=dev)
+        return functools.partial(step, state, batch,
+                                 torch.Generator(dev).manual_seed(0))
+    pose = RN25DPose("18")
+    pose.load_state_dict(rn25d_variables_to_state_dict(
+        seeded_rn25d_variables("18", 0), "18"), strict=True)
+    pose.to(dev)
+    if name == "finetune_step":
+        opt, _ = build_optimizer(pose, base_lr=1e-4, batch_size=8, accum=1,
+                                 steps_per_epoch=2, epochs=2, optimizer="adam")
+        step = make_finetune_step(
+            pose, opt, AugmentationFlags(crop=True, rotate=True, resize=True),
+            AugmentationParams(resize_shape=(64, 64)), loss_3d_weight=0.1)
+        batch = synthetic_supervised_batch(8, canvas=96, seed=1, device=dev)
+        return functools.partial(step, TrainState(pose, opt), batch,
+                                 torch.Generator(dev).manual_seed(0))
+    if name == "run_two_pass":
+        x = torch.from_numpy(seeded_frames(4, 7)).to(dev)
+        K = torch.from_numpy(seeded_intrinsics(4, 8)).to(dev)
+        return functools.partial(run_two_pass, pose.eval(), x, K)
+    sess = InferenceSession(pose, batch_size=4, image_size=64, device=dev)
+    frames = np.random.default_rng(3).integers(0, 256, (4, 64, 64, 3),
+                                               dtype=np.uint8)
+    return functools.partial(sess._predict, frames, seeded_intrinsics(4, 9))
+
+
+@pytest.mark.parametrize("name", _WAIT_PATHS)
+def test_paths_make_no_host_waits(card, name):
+    """After one call that builds what the path builds on first use, the
+    pretrain step (recipe and all flags, each route), the fine-tune step,
+    one two-pass leaderboard batch and one serving batch make the host wait
+    on the card nowhere: torch.cuda.set_sync_debug_mode("error") raises at
+    the first wait."""
+    fn = _wait_path(name, card)
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
