@@ -27,7 +27,13 @@ one JSON line that carries the card's name and power limit:
               types; kernel, plain, bound and library (or grouped-route)
               times; kernels 1, 3 and 4 also on the bf16 first-pass sources
               of the all-flags augmentation (phase 10), captured from
-              `augment.apply`
+              `augment.apply`; kernel 1 also at the accuracy proxy's shapes
+              (128² uint8 canvases to 64² bf16 views, both passes, captured
+              the same way); kernel 4 on float sources holding Inf and NaN
+              under zero taps and in all-zero tiles, bf16 and f32 sources
+              and taps at the recipe's pass-2 shapes: NaN and +-Inf where
+              the plain version has them; then the step factories turn TF32
+              off for a model moved to the card without resolve_device
   4. warp     affine_warp_mxu at the pred_fh geometry, kernel against plain,
               both in bf16 on the card: max abs <= 2.5 (the TPU's bound for
               the same comparison); then the pretrain geometry (256 seeded
@@ -134,7 +140,17 @@ one JSON line that carries the card's name and power limit:
               a BatchNorm across ranks against a plain one; then
               dryrun_multichip(2) on the card.  The two-rank times share
               one card: not speed
- 12. kernels  one line listing every ported kernel
+ 12. accuracy the accuracy path (peclr_tpu_torch/scripts): the downstream
+              chain's main at the reference's widths (RN50, crop 128, batch
+              64) cut in steps (24 unique frames, 8 pretrain and 8
+              fine-tune steps, --freeze-encoder), all five tiers and the
+              leaderboard at limit 32: the .pth round trip bit-exact and its
+              row equal, the frozen backbones unchanged to the bit, finite
+              losses, kernel 1 launched 2 a step, 2 an evaluate batch and 4
+              a leaderboard batch, kernels 2-4 never, no host wait inside a
+              pretrain or fine-tune loop; then the proxy's pretrain (RN50, 64
+              px, 8 steps of 64) and one linear_probe
+ 13. kernels  one line listing every ported kernel
 Then the card's nvidia-smi line, and last the contract line
 {"ok": true, "device": {...}}.  No weights are read (they are made from a
 seed); the only data read is the trainer's fixture.
@@ -362,15 +378,43 @@ def finetune_shift_calls(torch, dev):
         AugmentationParams,
     )
     from peclr_tpu_torch.data.synthetic import seeded_frames
+
+    frames = torch.from_numpy(seeded_frames(FINETUNE_BATCH, SEED + 10)).to(dev)
+    return warp_shift_calls(torch, dev, frames,
+                            AugmentationFlags(crop=True, resize=True),
+                            AugmentationParams(), SEED + 11, "a fine-tune")
+
+
+def proxy_shift_calls(torch, dev):
+    """The two kernel-1 calls of one microbatch of the accuracy proxy's
+    pretraining (its 64 frames doubled: 128 of its 128² canvases to 64²
+    views, the recipe's flags, bf16), captured as in finetune_shift_calls."""
+    from peclr_tpu_torch.config.defaults import (
+        AugmentationFlags,
+        AugmentationParams,
+    )
+    from peclr_tpu_torch.scripts.accuracy_proxy import render_batch
+
+    imgs, _ = render_batch(np.random.default_rng(SEED + 30), 2 * 64)
+    return warp_shift_calls(
+        torch, dev, torch.from_numpy(imgs).to(dev),
+        AugmentationFlags(crop=True, rotate=True, resize=True,
+                          color_jitter=True),
+        AugmentationParams(resize_shape=(64, 64)), SEED + 31,
+        "an accuracy-proxy")
+
+
+def warp_shift_calls(torch, dev, frames, flags, params, seed, what):
+    """The kernel-1 calls of one augment.apply of `frames` (uint8 canvases
+    on the card) with draws from `seed`, captured as (rows3, k, f, out,
+    out_dtype); there must be two."""
     from peclr_tpu_torch.ops import augment, warp_mxu
     from peclr_tpu_torch.train.recipe import synthetic_pretrain_batch
 
-    flags, params = AugmentationFlags(crop=True, resize=True), AugmentationParams()
-    frames = torch.from_numpy(seeded_frames(FINETUNE_BATCH, SEED + 10)).to(dev)
-    joints = synthetic_pretrain_batch(FINETUNE_BATCH, 224, SEED + 11,
-                                      device=dev)["joints25d"]
-    draws = augment.draw(torch.Generator(device=dev).manual_seed(SEED + 12),
-                         FINETUNE_BATCH, flags, params)
+    n, canvas = frames.shape[0], frames.shape[1]
+    joints = synthetic_pretrain_batch(n, canvas, seed, device=dev)["joints25d"]
+    draws = augment.draw(torch.Generator(device=dev).manual_seed(seed + 1),
+                         n, flags, params)
     calls = []
     real = warp_mxu.fused_shift_lerp_grouped
 
@@ -384,7 +428,7 @@ def finetune_shift_calls(torch, dev):
         augment.apply(frames, joints, draws, flags, params)
     finally:
         warp_mxu.fused_shift_lerp_grouped = real
-    check(len(calls) == 2, f"a fine-tune sample made {len(calls)} kernel-1 "
+    check(len(calls) == 2, f"{what} sample made {len(calls)} kernel-1 "
           "calls, want 2")
     return calls
 
@@ -443,7 +487,9 @@ def phase_kernel(torch, dev):
     """Kernels 1 and 2 (the grouped shift, lerp and raw mode) bit for bit
     against the plain version.  The leaderboard's, the pretrain recipe's and
     the fine-tune's cases must take the 16-byte path; an unaligned view,
-    W = 130 and ragged output tails (out = 100, 129) the scalar one."""
+    W = 130 and ragged output tails (out = 100, 129) the scalar one; the
+    accuracy proxy's (128² canvases to 64² views) record the path they
+    take."""
     from peclr_tpu_torch.ops.shift_lerp import (
         fused_shift_lerp_grouped,
         shift_lerp_grouped_plain,
@@ -483,6 +529,9 @@ def phase_kernel(torch, dev):
     # the fine-tune's two calls as its main path makes them: (k, f) given
     (ft1, k1, f1, out1, dt1), (ft2, k2, f2, out2, dt2) = finetune_shift_calls(
         torch, dev)
+    # the accuracy proxy's two calls (128² canvases to 64² views)
+    (px1, kp1, fp1, outp1, dtp1), (px2, kp2, fp2, outp2, dtp2) = (
+        proxy_shift_calls(torch, dev))
     # the all-flags pass 1 (bf16 sources) as the pretrain step makes it
     (ab, ka, fa, outa), kwa = ablation_pass1_call(torch, dev, "grouped")
     cases = [
@@ -500,6 +549,9 @@ def phase_kernel(torch, dev):
         ("finetune_pass2_bf16_to_bf16", True, ft2, (k2, f2), dt2, out2, vec),
         ("ablation_pass1_bf16_to_bf16", True, ab, (ka, fa),
          kwa["out_dtype"], outa, vec),
+        ("proxy_pass1_u8_to_bf16", True, px1, (kp1, fp1), dtp1, outp1, None),
+        ("proxy_pass2_bf16_to_bf16", True, px2, (kp2, fp2), dtp2, outp2,
+         None),
         ("unaligned_view_u8_to_bf16", True, unaligned,
          offsets(1001, -800.0, 260.0), torch.bfloat16, out, scalar),
         ("odd_w_130_u8_to_bf16", True, w130, offsets(1001, -800.0, 170.0),
@@ -535,8 +587,8 @@ def phase_kernel(torch, dev):
         got, ref = kern(), plain()
         torch.cuda.synchronize()
         path = fused_shift_lerp_grouped.last_path
-        check(path == want_path, f"{name}: took the {path} path, want "
-              f"{want_path}")
+        check(want_path in (None, path), f"{name}: took the {path} path, "
+              f"want {want_path}")
         check(torch.equal(got, ref), f"{name}: not bit-exact")
         max_abs = (got.float() - ref.float()).abs().max().item()
         if "clamped" in name:
@@ -2685,6 +2737,214 @@ def pred_fh_affines(torch, b, seed):
 # --------------------------------------------------------------------------
 
 
+def phase_matmul_nonfinite(torch, dev):
+    """Kernel 4 on float sources that hold Inf and NaN, at the recipe's
+    pass-2 shapes ((3, 256, 128, 224) sources, taps (256, 128, 256) at
+    slopes 1.0-1.75, f32 out): some under zero taps only, one in a row whose
+    window is finite in f32 and Inf once cast to bf16 taps, and image 1's
+    taps all zero (every tile's band (0, 0)); bf16 and f32 sources, each
+    with bf16 and f32 taps.  NaN, +Inf and -Inf where the plain (dense)
+    version has them, the other values within 1e-2, one counted launch a
+    call, and the device time beside the same call on the finite source."""
+    from peclr_tpu_torch.ops.shift_lerp_matmul import (
+        fused_shift_lerp_matmul,
+        shift_lerp_matmul_plain,
+    )
+
+    uniform, taps, rows_of, shifts = matmul_inputs(torch, dev, SEED + 41)
+    b = 2 * MICROBATCH
+    finite = rows_of((3, b, 128, 224), torch.float32)
+    k, f = shifts(uniform(b * 128, -296.0, 264.0), 256, 224)
+    w_t = taps(b, 256, 128, 1.0, 1.75, torch.float32)
+    w_t[1] = 0
+    bad = finite.clone()
+    k_host = k.cpu()
+    places = ((0, 0, 3, 100, math.inf), (1, 0, 40, 7, -math.inf),
+              (2, 1, 65, 200, math.nan), (0, 5, 33, 0, math.nan),
+              (1, 9, 10, 223, math.inf), (2, 200, 127, 50, math.nan))
+    for g, bi, r, col, val in places:
+        bad[g, bi, r, col] = val
+        k_host[bi * 128 + r] = col - 60  # within the row's window
+    bad[2, 7, 50, 120:122] = 3.4e38  # finite in f32, Inf in bf16
+    k_host[7 * 128 + 50] = 60
+    k = k_host.to(dev)
+    rows = []
+    for src_dtype in (torch.bfloat16, torch.float32):
+        for tap_dtype in (torch.bfloat16, torch.float32):
+            name = (f"matmul_nonfinite_{str(src_dtype)[6:]}_src_"
+                    f"{str(tap_dtype)[6:]}_taps")
+            x, taps_t = bad.to(src_dtype), w_t.to(tap_dtype)
+            launches = fused_shift_lerp_matmul.launches
+            got = fused_shift_lerp_matmul(x, k, f, taps_t, torch.float32)
+            ref = shift_lerp_matmul_plain(x, k, f, taps_t, torch.float32)
+            torch.cuda.synchronize()
+            check(fused_shift_lerp_matmul.launches == launches + 1,
+                  f"{name}: not one counted launch")
+            masks = {}
+            for mask in (torch.isnan, torch.isposinf, torch.isneginf):
+                same = torch.equal(mask(got), mask(ref))
+                check(same, f"{name}: {mask.__name__} masks differ")
+                masks[mask.__name__] = int(mask(ref).sum().item())
+            check(masks["isnan"] > 0 and bool(torch.isnan(ref[:, 1]).any()),
+                  f"{name}: the inputs make no NaN in the all-zero tiles")
+            ok = torch.isfinite(ref)
+            max_abs = (got[ok] - ref[ok]).abs().max().item()
+            check(max_abs <= 1e-2, f"{name}: max_abs {max_abs} > 1e-2")
+            clean = finite.to(src_dtype)
+            row = {"case": name, "shape_in": list(x.shape),
+                   "taps": list(taps_t.shape), "max_abs": max_abs,
+                   "tolerance": 1e-2, "ref_counts": masks,
+                   "device_ms": device_ms(lambda: fused_shift_lerp_matmul(
+                       x, k, f, taps_t, torch.float32), 10),
+                   "finite_source_device_ms": device_ms(
+                       lambda: fused_shift_lerp_matmul(
+                           clean, k, f, taps_t, torch.float32), 10)}
+            rows.append(row)
+            emit("kernel_nonfinite", **row)
+    return rows
+
+
+def phase_tf32(torch, dev):
+    """The step factories turn TF32 off for a model their caller moved to
+    the card itself (not through resolve_device)."""
+    from peclr_tpu_torch.config.defaults import (
+        AugmentationFlags,
+        AugmentationParams,
+    )
+    from peclr_tpu_torch.models import PeCLRModel, RN25DPose
+    from peclr_tpu_torch.train.finetune import make_finetune_step
+    from peclr_tpu_torch.train.optimizer import build_optimizer
+    from peclr_tpu_torch.train.step import (
+        make_peclr_eval_step,
+        make_peclr_train_step,
+    )
+
+    flags, params = AugmentationFlags(crop=True, resize=True), AugmentationParams()
+    switches = ((torch.backends.cudnn, "allow_tf32"),
+                (torch.backends.cuda.matmul, "allow_tf32"),
+                (torch.backends.cuda.matmul,
+                 "allow_bf16_reduced_precision_reduction"))
+    peclr, rn25d = PeCLRModel("18").to(dev), RN25DPose("18").to(dev)
+    builds = {
+        "pretrain": lambda: make_peclr_train_step(
+            peclr, build_optimizer(peclr, 1e-4, 8, 1, 10, 1)[0], flags,
+            params),
+        "pretrain_eval": lambda: make_peclr_eval_step(peclr, flags, params),
+        "finetune": lambda: make_finetune_step(
+            rn25d, build_optimizer(rn25d, 1e-4, 8, 1, 10, 1)[0], flags,
+            params),
+    }
+    after = {}
+    for name, build in builds.items():
+        for module, attr in switches:
+            setattr(module, attr, True)
+        build()
+        after[name] = [getattr(module, attr) for module, attr in switches]
+    for module, attr in switches:
+        setattr(module, attr, False)
+    for name, flags_after in after.items():
+        check(not any(flags_after), f"tf32: {name} left {flags_after}")
+    emit("tf32", switches=[attr for _, attr in switches], after_build=after)
+
+
+#: the accuracy phase: the downstream chain at the reference's widths (RN50,
+#: crop 128, batch 64), cut in steps only, and the proxy's pretraining
+ACCURACY_CHAIN_ARGV = ["--resnet", "50", "--crop", "128", "--batch", "64",
+                       "--num-unique", "24", "--pretrain-steps", "8",
+                       "--finetune-steps", "8", "--freeze-encoder"]
+ACCURACY_PROXY_STEPS, ACCURACY_PROXY_IMAGES = 8, 512
+
+
+def phase_accuracy(torch, dev):
+    """The accuracy path (peclr_tpu_torch/scripts): the downstream chain's
+    main at ACCURACY_CHAIN_ARGV, all five tiers and the leaderboard at
+    limit 32, into a temporary directory; the round trip bit-exact and its
+    row equal to peclr_full's (rel 1e-9, the reference's test), every frozen backbone unchanged to the bit,
+    the losses finite, kernel 1 launched 2 a pretrain and a fine-tune step,
+    2 an evaluate batch and 4 a leaderboard batch, kernels 2-4 never, and
+    no host wait (torch's sync debug mode) inside a pretrain or fine-tune
+    loop.  Then the proxy's pretrain at RN50, 64 px, 8 steps of 64 on 512
+    frames, and one linear_probe on them: finite, 2 launches a step."""
+    from peclr_tpu_torch.scripts import accuracy_proxy, downstream_chain
+
+    tmp = tempfile.mkdtemp(prefix="peclr_accuracy_")
+    loop_waits = []
+    real_run_steps = downstream_chain.run_steps
+
+    def watched(*args, **kwargs):
+        out = []
+        loop_waits.extend(host_waits(
+            torch, lambda: out.append(real_run_steps(*args, **kwargs))))
+        return out[0]
+
+    downstream_chain.run_steps = watched
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        chain = downstream_chain.main(
+            ACCURACY_CHAIN_ARGV + ["--device", str(dev),
+                                   "--root", os.path.join(tmp, "fh"),
+                                   "--out", os.path.join(tmp, "chain.json")])
+        torch.cuda.synchronize()
+        chain_seconds = time.perf_counter() - t0
+        chain_counts = kernel_counts()
+    finally:
+        downstream_chain.run_steps = real_run_steps
+        shutil.rmtree(tmp, ignore_errors=True)
+    steps = int(ACCURACY_CHAIN_ARGV[ACCURACY_CHAIN_ARGV.index(
+        "--pretrain-steps") + 1])
+    by = {r["encoder"]: r for r in chain["rows"]}
+    check(list(by) == ["none", "peclr_quarter", "peclr_full",
+                       "peclr_full_pth_roundtrip", "simclr_full"],
+          f"accuracy: chain tiers {list(by)}")
+    check(chain["port_roundtrip"]["encoder_bitexact"],
+          "accuracy: the .pth round trip is not bit-exact")
+    for key, value in by["peclr_full"].items():
+        if key != "encoder":
+            check(math.isclose(by["peclr_full_pth_roundtrip"][key], value,
+                               rel_tol=1e-9),
+                  f"accuracy: the round trip's {key} differs")
+    check(chain["pred_fh_entries"] == 32, "accuracy: leaderboard entries "
+          f"{chain['pred_fh_entries']}")
+    for name, phase in chain["phases"].items():
+        want = {"pretrain": 2 * steps, "finetune": 2 * steps,
+                "evaluate": 2, "leaderboard": 4}[name.split("_")[0]]
+        check(phase["kernel1_launches"] == want, f"accuracy: {name} launched "
+              f"kernel 1 {phase['kernel1_launches']} times, want {want}")
+        check(math.isfinite(phase.get("last_loss", 0.0)),
+              f"accuracy: {name} loss not finite")
+        check(phase.get("frozen_backbone_bitexact", True),
+              f"accuracy: {name} moved the frozen backbone")
+    others = {k: v for k, v in chain_counts.items() if k != "shift_lerp_grouped"}
+    check(not any(others.values()), f"accuracy: other kernels ran {others}")
+    check(not loop_waits, f"accuracy: host waits in the loops {loop_waits}")
+
+    reset_counts()
+    t0 = time.perf_counter()
+    imgs, joints = accuracy_proxy.render_batch(np.random.default_rng(5),
+                                               ACCURACY_PROXY_IMAGES)
+    embed, losses, _ = accuracy_proxy.pretrain(
+        "peclr", imgs, joints, ACCURACY_PROXY_STEPS, 64, 5, 64, "50",
+        device=dev)
+    proxy_counts = kernel_counts()
+    probe = accuracy_proxy.linear_probe(embed, imgs, joints, 64,
+                                        3 * ACCURACY_PROXY_IMAGES // 4, 5)
+    proxy_seconds = time.perf_counter() - t0
+    check(all(math.isfinite(v) for v in losses + list(probe.values())),
+          f"accuracy: proxy losses {losses}, probe {probe}")
+    check(proxy_counts["shift_lerp_grouped"] == 2 * ACCURACY_PROXY_STEPS,
+          f"accuracy: proxy launches {proxy_counts}")
+    run = {"chain_seconds": chain_seconds, "chain_launches": chain_counts,
+           "chain_phases": chain["phases"],
+           "chain_auc_procrustes": {k: r["auc_procrustes"]
+                                    for k, r in by.items()},
+           "loop_host_waits": len(loop_waits),
+           "proxy_seconds": proxy_seconds, "proxy_launches": proxy_counts,
+           "proxy_losses": losses, "proxy_probe_epe_px": probe}
+    emit("accuracy", chain_argv=ACCURACY_CHAIN_ARGV, **run)
+    return run
+
+
 def main() -> int:
     global CARD
     try:
@@ -2744,6 +3004,8 @@ def main() -> int:
     kernel_rows = phase_kernel(torch, dev)
     flat_rows = phase_flat_kernel(torch, dev)
     matmul_rows = phase_matmul_kernel(torch, dev)
+    nonfinite_rows = phase_matmul_nonfinite(torch, dev)
+    phase_tf32(torch, dev)
 
     # ---- 4. warp at the pred_fh geometry -------------------------------------
     frames = seeded_frames(N_FRAMES, SEED)
@@ -2934,8 +3196,10 @@ def main() -> int:
         ddp_run = phase_ddp(torch, dev, root, trainer_run)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    # ---- 12. the accuracy path --------------------------------------------------
+    accuracy_run = phase_accuracy(torch, dev)
 
-    # ---- 12. kernels line --------------------------------------------------------
+    # ---- 13. kernels line --------------------------------------------------------
     def summary(name, source, replaces, launches, rows, timed_case, **extra):
         timed = next(r for r in rows if r["case"] == timed_case)
         return {
@@ -2987,7 +3251,15 @@ def main() -> int:
                              if r["case"].startswith("pretrain_")},
                 pretrain_device_ms={r["case"]: r["device_ms"]
                                     for r in kernel_rows
-                                    if r["case"].startswith("pretrain_")}),
+                                    if r["case"].startswith("pretrain_")},
+                launches_per_accuracy_chain=accuracy_run["chain_launches"][
+                    "shift_lerp_grouped"],
+                launches_per_accuracy_proxy=accuracy_run["proxy_launches"][
+                    "shift_lerp_grouped"],
+                proxy={r["case"]: {key: r[key] for key in (
+                    "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "path")}
+                    for r in kernel_rows if r["case"].startswith("proxy_")}),
         summary("shift_raw_grouped", shift_src,
                 "peclr_tpu/ops/pallas/barrel_shift.py:118",
                 runs["raw_kernel"][0]["raw_launches"],
@@ -3031,7 +3303,9 @@ def main() -> int:
                 ablation_pass1_ms=matmul_of[
                     "matmul_ablation_pass1_bf16_to_bf16"]["ms"],
                 ablation_pass1_device_ms=matmul_of[
-                    "matmul_ablation_pass1_bf16_to_bf16"]["device_ms"]),
+                    "matmul_ablation_pass1_bf16_to_bf16"]["device_ms"],
+                nonfinite={r["case"]: r["device_ms"] for r in nonfinite_rows},
+                nonfinite_max_abs=max(r["max_abs"] for r in nonfinite_rows)),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     emit("done", seconds=time.perf_counter() - t_start)

@@ -1,5 +1,5 @@
 """Environment-derived paths and constants (the same env-var contract as
-peclr_tpu/constants.py: DATA_PATH, SAVED_MODELS_BASE_PATH,
+peclr_tpu/constants.py: BASE_PATH, DATA_PATH, SAVED_MODELS_BASE_PATH,
 SAVED_META_INFO_PATH, COMET_*).
 
 Modules that use a path read it from this module when they are called
@@ -12,6 +12,7 @@ import os
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+BASE_DIR = os.environ.get("BASE_PATH", REPO_ROOT)
 DATA_PATH = os.environ.get("DATA_PATH", os.path.join(REPO_ROOT, "data", "raw"))
 FREIHAND_DATA = os.path.join(DATA_PATH, "freihand_dataset")
 YOUTUBE_DATA = os.path.join(DATA_PATH, "youtube_3d_hands", "data")
@@ -31,3 +32,9 @@ COMET_KWARGS = {
     "project_name": os.environ.get("COMET_PROJECT"),
     "workspace": os.environ.get("COMET_WORKSPACE"),
 }
+
+#: FreiHAND's sizes: 32,560 unique training images in 4 colourings
+#: (gs/hom/sample/auto), 3,960 evaluation images
+FREIHAND_TRAIN_SIZE = 32560
+FREIHAND_EVAL_SIZE = 3960
+FREIHAND_VERSIONS = ("gs", "hom", "sample", "auto")

@@ -60,10 +60,12 @@
 //  taps and lerp more.
 //  Taps outside the band are exact zeros, so skipping them leaves every f32
 //  sum unchanged while the window is finite (a skipped term is w * 0 = +-0).
-//  A non-finite source value can propagate differently from the dense
-//  product: Inf * 0 = NaN there, nothing here.  Any G, B, R, W, U and M are
-//  taken; with more than kPlanes planes a multi-segment band is staged again
-//  for each group; dense taps (band = U) are the worst case.
+//  An Inf or NaN window element under a zero tap is NaN in the dense
+//  product, so a float source takes one more step (below, "Non-finite
+//  windows"): a block with such a row walks every tap, and its outputs are
+//  the dense product's.  Any G, B, R, W, U and M are taken; with more than
+//  kPlanes planes a multi-segment band is staged again for each group;
+//  dense taps (band = U) are the worst case.
 //  Where the time goes (chip_smoke.py's kernel phase, PERF.md): building the
 //  window, latency-bound on its source loads, then the product and the
 //  stores, one after another between the block's barriers.
@@ -113,11 +115,35 @@
 //  depth of 8 would round the bands out again.  One-pass TF32 would lose the
 //  kernel's 1e-2 bound on the 0-255 scale.
 //  Skipped taps are exact zeros, so the sums are those of the dense product
-//  while the window is finite; an Inf or NaN source element under a zero
-//  tap is NaN in the dense product and skipped here, as on the bf16 path.
-//  Any G, B, R, W, U and M are taken: dense taps walk every segment of U
-//  (the worst case), rows past R and outputs past M are computed as zeros
-//  and not stored.
+//  while the window is finite; a block with a non-finite window row walks
+//  every tap, as on the bf16 path.  Any G, B, R, W, U and M are taken: dense
+//  taps walk every segment of U (the worst case), rows past R and outputs
+//  past M are computed as zeros and not stored.
+//
+// Non-finite windows (bf16 and f32 sources, either tap type).  The dense
+// product of the reference turns an Inf or NaN window element under a zero
+// tap into NaN, also in a tile whose taps are all zero (band (0, 0)).  So,
+// for a float source, the band launch has one more block a (b, tile of
+// kFlagRows = 32 rows r), the product's row tile: it reads those rows of
+// every plane once (16-byte loads where the rows allow, kFlagLoads rows'
+// loads in flight a warp) and writes one byte, whether an element is Inf,
+// NaN or of magnitude 1e38 or more.  A row without one has a finite
+// window: a lerp of two values below 1e38 stays below it, and so does its
+// cast to bf16 (whose largest finite value is 3.4e38).  A product block
+// reads its tile's byte with its band and, where it is set, walks [0, U)
+// instead of its band: the dense walk, so NaN and +-Inf come out where the
+// dense product has them (IEEE's Inf and NaN results do not depend on the
+// order of the sum).  A tile flagged without need (an Inf outside every
+// window, a large finite value, or only another row's) gives the same sums
+// to the bit either way: the extra terms are products with taps of exactly
+// zero, added in the same order.  The pass reads the source once: about 13
+// us for the recipe's pass 2 at 3.35 TB/s.  (A first design lerped and
+// cast every window element, exact to the element, with loads of 2-4 bytes
+// a lane; a second flagged each row, and each product block reduced its
+// rows' flags of every plane behind a barrier, which spilled registers of
+// the bf16 product: 40-100 us and 37-63 us more a pass on the card.)  A
+// uint8 source holds no Inf or NaN and skips all of it.  The wrapper still
+// makes one call of two launches.
 //
 // The designs these replaced: for bf16 taps the dense product (128 x 64
 // output tiles of one (g, b) over all U taps, every tap and window element
@@ -132,11 +158,15 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 enum DType { kU8 = 0, kBF16 = 1, kF32 = 2 };
 
 constexpr int kThreads = 256;  // threads of a band-pass block
+constexpr int kFlagRows = 32;  // rows r of each plane a non-finite flag covers
+constexpr int kFlagLoads = 4;  // rows whose loads a flag-block warp has in flight
 constexpr int kBandLoads = 4;  // 16-byte loads a band-pass thread has in flight
 constexpr int kPadC = 4;       // accumulator staging row padding
 
@@ -152,6 +182,7 @@ constexpr int kLdw = kBandKC + kPadH;      // window chunk row stride
 constexpr int kLdc = kBandR + kPadC;       // accumulator staging row stride
 constexpr int kBandThreads = 128;          // threads of a product block
 constexpr int kBandWarps = kBandThreads / 32;
+static_assert(kBandR == kFlagRows, "a product block's rows are one flag's");
 static_assert(kBandWarps == 2 * (kBandR / 16), "warps tile the output 2 (m) x kBandR / 16 (r)");
 constexpr int kPlanes = 3;                 // planes built and multiplied together
 constexpr int kTaskTaps = 8;               // window taps a thread builds at once
@@ -162,6 +193,7 @@ constexpr int kF32Warps = 4;                            // tiles of a block
 constexpr int kF32GroupM = kF32TileM * kF32Warps;       // outputs m per block
 constexpr int kF32Rows = 32;                            // rows r per block, one per lane
 constexpr int kF32Threads = 32 * kF32Warps;
+static_assert(kF32Rows == kFlagRows, "a product block's rows are one flag's");
 constexpr int kF32Seg = 80;                             // most window taps built at once
 constexpr int kF32Ld = kF32Seg + 4;                     // window row stride
 constexpr int kF32TapSeg = 32;                          // most taps of a tile staged at once
@@ -226,13 +258,86 @@ __device__ __forceinline__ void band_of_vector(uint4 q, int u0, int& lo, int& hi
   }
 }
 
+// Whether a source value keeps every window element it enters finite: not
+// Inf or NaN, and of magnitude below 1e38 (NaN compares false).
+__device__ __forceinline__ bool ordinary(float v) { return fabsf(v) < 1e38f; }
+
+// The same for the 16 / sizeof(In) float elements of a 16-byte vector.
+__device__ __forceinline__ bool ordinary_vector(uint4 q, const float*) {
+  return ordinary(__uint_as_float(q.x)) && ordinary(__uint_as_float(q.y)) &&
+         ordinary(__uint_as_float(q.z)) && ordinary(__uint_as_float(q.w));
+}
+__device__ __forceinline__ bool ordinary_vector(uint4 q, const __nv_bfloat16*) {
+  const uint32_t words[4] = {q.x, q.y, q.z, q.w};
+  bool ok = true;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    ok &= ordinary(__uint_as_float(words[j] << 16)) &&
+          ordinary(__uint_as_float(words[j] & 0xffff0000u));
+  return ok;
+}
+
+// Flag block fb of the band launch: rows [t * kFlagRows, (t + 1) *
+// kFlagRows) of image b in each of the G planes, (b, t) = (fb / r_tiles, fb
+// % r_tiles); flags[fb] = 1 when one of their elements is not ordinary,
+// else 0.  The warps take the (plane, row) pairs in turn.  `vec`: W *
+// sizeof(In) % 16 == 0 and x 16-byte aligned, so a row is whole 16-byte
+// vectors.
+template <typename In>
+__device__ __forceinline__ void flag_tile(int fb, const In* __restrict__ x,
+                                          uint8_t* __restrict__ flags, int g_count, int b_count,
+                                          int r_count, int w, int r_tiles, bool vec) {
+  constexpr int kWarps = kThreads / 32;
+  const int b = fb / r_tiles, r0 = fb % r_tiles * kFlagRows;
+  const int rows = min(kFlagRows, r_count - r0), pairs = g_count * rows;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  auto row_of = [&](int pair) {
+    const int g = pair / rows, r = r0 + pair % rows;
+    return x + ((static_cast<long long>(g) * b_count + b) * r_count + r) * w;
+  };
+  bool bad = false;
+  if (vec) {
+    const int n = static_cast<int>(w * sizeof(In) / 16);  // vectors a row
+    for (int p0 = warp; p0 < pairs; p0 += kWarps * kFlagLoads) {
+      for (int i = lane; i < n; i += 32) {
+        uint4 q[kFlagLoads];
+#pragma unroll
+        for (int j = 0; j < kFlagLoads; ++j) {
+          const int p = p0 + j * kWarps;
+          q[j] = p < pairs ? reinterpret_cast<const uint4*>(row_of(p))[i]
+                           : make_uint4(0, 0, 0, 0);
+        }
+#pragma unroll
+        for (int j = 0; j < kFlagLoads; ++j) bad |= !ordinary_vector(q[j], x);
+      }
+    }
+  } else {
+    for (int p = warp; p < pairs; p += kWarps) {
+      const In* src = row_of(p);
+      for (int t = lane; t < w; t += 32) bad |= !ordinary(to_f32(src[t]));
+    }
+  }
+  bad = __syncthreads_or(bad) != 0;
+  if (threadIdx.x == 0) flags[fb] = bad ? 1 : 0;
+}
+
 // One block per (b, span of kTiles tiles of kTile outputs), 32 outputs for
 // either tap type: the span's taps w_t[b, m0:m1, :] are one contiguous run
 // of (m1 - m0) * U elements, tile t's from t * kTile * U on.
-template <typename T, int kTile, int kTiles>
+// For a float source In, blocks from band_blocks on are flag blocks
+// (flag_tile); a uint8 source has none.
+template <typename T, int kTile, int kTiles, typename In>
 __global__ void __launch_bounds__(kThreads)
 tap_band(const T* __restrict__ wt, int32_t* __restrict__ band, int m_count, int u_count,
-         bool vec) {
+         bool vec, int band_blocks, const In* __restrict__ x, uint8_t* __restrict__ flags,
+         int g_count, int b_count, int r_count, int w, bool x_vec) {
+  if constexpr (!std::is_same<In, uint8_t>::value) {
+    if (static_cast<int>(blockIdx.x) >= band_blocks) {
+      flag_tile<In>(blockIdx.x - band_blocks, x, flags, g_count, b_count, r_count, w,
+                    (r_count + kFlagRows - 1) / kFlagRows, x_vec);
+      return;
+    }
+  }
   constexpr int kPer = 16 / sizeof(T);
   const int m_tiles = (m_count + kTile - 1) / kTile;
   const int spans = (m_tiles + kTiles - 1) / kTiles;
@@ -436,9 +541,9 @@ template <typename In, typename Out>
 __global__ void __launch_bounds__(kBandThreads, 8)
 shift_lerp_matmul_band(const In* __restrict__ x, const int32_t* __restrict__ k,
                        const float* __restrict__ f, const __nv_bfloat16* __restrict__ wt,
-                       const int32_t* __restrict__ band, Out* __restrict__ y,
-                       int g_count, int b_count, int r_count, int w, int u_count,
-                       int m_count, int m_tiles, int r_tiles, int seg, bool vec) {
+                       const int32_t* __restrict__ band, const uint8_t* __restrict__ flags,
+                       Out* __restrict__ y, int g_count, int b_count, int r_count, int w,
+                       int u_count, int m_count, int m_tiles, int r_tiles, int seg, bool vec) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int lds = seg + kPadH;
   __nv_bfloat16* sa = reinterpret_cast<__nv_bfloat16*>(smem);  // kBandM x lds taps
@@ -461,15 +566,20 @@ shift_lerp_matmul_band(const In* __restrict__ x, const int32_t* __restrict__ k,
     sf[i] = r0 + i < r_count ? f[row] : 0.0f;
   }
 
-  // the tile's band, rounded out to the MMA depth, within U rounded up
+  // the tile's band, rounded out to the MMA depth, within U rounded up;
+  // all of it where the row tile's flag is set
   const long long bi = 2LL * (static_cast<long long>(b) * m_tiles + mt);
   const int lo = band[bi], hi = band[bi + 1];
-  const int band_lo = lo / kDepth * kDepth;
+  const bool dense =
+      flags != nullptr && flags[static_cast<long long>(b) * r_tiles + r0 / kBandR] != 0;
+  __syncthreads();
   const int u_end = (u_count + kDepth - 1) / kDepth * kDepth;
-  const int band_hi = hi > lo ? min((hi + kDepth - 1) / kDepth * kDepth, u_end) : band_lo;
+  const int band_lo = dense ? 0 : lo / kDepth * kDepth;
+  const int band_hi = dense ? u_end
+                      : hi > lo ? min((hi + kDepth - 1) / kDepth * kDepth, u_end)
+                                : band_lo;
   const int n_seg = (band_hi - band_lo + seg - 1) / seg;
   const int n_chunks = (band_hi - band_lo + kBandKC - 1) / kBandKC;
-  __syncthreads();
 
   const long long plane_elems = static_cast<long long>(b_count) * r_count * w;
   const long long out_planes = static_cast<long long>(b_count) * m_count * r_count;
@@ -627,9 +737,10 @@ template <typename In, typename Out>
 __global__ void __launch_bounds__(kF32Threads, kF32Blocks)
 shift_lerp_matmul_f32(const In* __restrict__ x, const int32_t* __restrict__ k,
                       const float* __restrict__ f, const float* __restrict__ wt,
-                      const int32_t* __restrict__ band, Out* __restrict__ y, int g_count,
-                      int b_count, int r_count, int w, int u_count, int m_count, int m_tiles,
-                      int m_groups, int r_tiles, bool vec) {
+                      const int32_t* __restrict__ band, const uint8_t* __restrict__ flags,
+                      Out* __restrict__ y, int g_count, int b_count, int r_count, int w,
+                      int u_count, int m_count, int m_tiles, int m_groups, int r_tiles,
+                      bool vec) {
   __shared__ __align__(16) float smem[kF32Smem / sizeof(float)];
   float* sw = smem;                                  // kPlanes x kF32Rows x kF32Ld windows
   float* sa = sw + kPlanes * kF32Rows * kF32Ld;      // kF32Warps x kF32TileM x kF32TapLd taps
@@ -668,6 +779,11 @@ shift_lerp_matmul_f32(const In* __restrict__ x, const int32_t* __restrict__ k,
     }
     g_lo = min(g_lo, lo4);
     g_hi = max(g_hi, hi4);
+  }
+  // every tap where the row tile's flag is set
+  if (flags != nullptr && flags[static_cast<long long>(b) * r_tiles + r0 / kF32Rows] != 0) {
+    t_lo = g_lo = 0;
+    t_hi = g_hi = u_end;
   }
   __syncthreads();
 
@@ -745,16 +861,26 @@ shift_lerp_matmul_f32(const In* __restrict__ x, const int32_t* __restrict__ k,
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
-template <typename T, int kTile>
-int launch_tap_band(const void* wt, int32_t* band, int b, int m, int u, cudaStream_t stream) {
+// The band pass of (B, M, U) taps; for a float source In, in the same
+// launch, also the (B, ceil(R / kFlagRows)) flags of x (G, B, R, W).
+template <typename T, int kTile, typename In = uint8_t>
+int launch_tap_band(const void* wt, int32_t* band, int b, int m, int u, cudaStream_t stream,
+                    const In* x = nullptr, uint8_t* flags = nullptr, int g = 0, int r = 0,
+                    int w = 0) {
   constexpr int kTiles = 32 / kTile;  // a block reads the taps of 32 outputs
   const int m_tiles = (m + kTile - 1) / kTile;
-  const long long blocks = static_cast<long long>(b) * ((m_tiles + kTiles - 1) / kTiles);
+  const long long band_blocks = static_cast<long long>(b) * ((m_tiles + kTiles - 1) / kTiles);
+  const long long flag_blocks = std::is_same<In, uint8_t>::value
+                                    ? 0
+                                    : static_cast<long long>(b) * ((r + kFlagRows - 1) / kFlagRows);
+  const long long blocks = band_blocks + flag_blocks;
   if (blocks > 0x7fffffffLL) return -2;
   if (blocks == 0) return 0;
   const bool vec = u % (16 / sizeof(T)) == 0 && aligned16(wt);
-  tap_band<T, kTile, kTiles><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-      static_cast<const T*>(wt), band, m, u, vec);
+  const bool x_vec = w * sizeof(In) % 16 == 0 && aligned16(x);
+  tap_band<T, kTile, kTiles, In><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+      static_cast<const T*>(wt), band, m, u, vec, static_cast<int>(band_blocks), x, flags, g, b,
+      r, w, x_vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -767,55 +893,63 @@ int launch_tap_band_of(const void* wt, int wt_dtype, int32_t* band, int b, int m
 
 template <typename In, typename Out>
 int launch_band(const void* x, const int32_t* k, const float* f, const void* wt,
-                int32_t* band, void* y, int g, int b, int r, int w, int u, int m,
-                cudaStream_t stream) {
+                int32_t* band, uint8_t* flags, void* y, int g, int b, int r, int w, int u,
+                int m, cudaStream_t stream) {
   const int m_tiles = (m + kBandM - 1) / kBandM;
   const int r_tiles = (r + kBandR - 1) / kBandR;
   const long long blocks = static_cast<long long>(b) * m_tiles * r_tiles;
   if (blocks > 0x7fffffffLL) return -2;
-  int rc = launch_tap_band<__nv_bfloat16, kBandM>(wt, band, b, m, u, stream);
+  int rc = launch_tap_band<__nv_bfloat16, kBandM, In>(wt, band, b, m, u, stream,
+                                                      static_cast<const In*>(x), flags, g, r,
+                                                      w);
   if (rc != 0) return rc;
   const int seg = max(kDepth, min((u + kDepth - 1) / kDepth * kDepth, kSegMax));
   const size_t smem = band_smem_bytes(seg);
   const bool vec = u % 8 == 0 && aligned16(wt);
   shift_lerp_matmul_band<In, Out><<<static_cast<unsigned>(blocks), kBandThreads, smem,
                                     stream>>>(
-      static_cast<const In*>(x), k, f, static_cast<const __nv_bfloat16*>(wt), band,
+      static_cast<const In*>(x), k, f, static_cast<const __nv_bfloat16*>(wt), band, flags,
       static_cast<Out*>(y), g, b, r, w, u, m, m_tiles, r_tiles, seg, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename In, typename Out>
 int launch_f32(const void* x, const int32_t* k, const float* f, const void* wt,
-               int32_t* band, void* y, int g, int b, int r, int w, int u, int m,
-               cudaStream_t stream) {
+               int32_t* band, uint8_t* flags, void* y, int g, int b, int r, int w, int u,
+               int m, cudaStream_t stream) {
   const int m_tiles = (m + kF32TileM - 1) / kF32TileM;
   const int m_groups = (m + kF32GroupM - 1) / kF32GroupM;
   const int r_tiles = (r + kF32Rows - 1) / kF32Rows;
   const long long blocks = static_cast<long long>(b) * m_groups * r_tiles;
   if (blocks > 0x7fffffffLL) return -2;
-  int rc = launch_tap_band<float, kF32TileM>(wt, band, b, m, u, stream);
+  int rc = launch_tap_band<float, kF32TileM, In>(wt, band, b, m, u, stream,
+                                                 static_cast<const In*>(x), flags, g, r, w);
   if (rc != 0) return rc;
   const bool vec = u % 4 == 0 && aligned16(wt);
   shift_lerp_matmul_f32<In, Out><<<static_cast<unsigned>(blocks), kF32Threads, 0, stream>>>(
-      static_cast<const In*>(x), k, f, static_cast<const float*>(wt), band,
+      static_cast<const In*>(x), k, f, static_cast<const float*>(wt), band, flags,
       static_cast<Out*>(y), g, b, r, w, u, m, m_tiles, m_groups, r_tiles, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename In>
 int dispatch_wt(const void* x, const int32_t* k, const float* f, const void* wt,
-                int wt_dtype, int32_t* band, void* y, int out_dtype, int g, int b, int r,
-                int w, int u, int m, cudaStream_t s) {
+                int wt_dtype, int32_t* band, uint8_t* flags, void* y, int out_dtype, int g,
+                int b, int r, int w, int u, int m, cudaStream_t s) {
   if (band == nullptr) return -1;
+  if (std::is_same<In, uint8_t>::value) {
+    flags = nullptr;  // a uint8 source is finite
+  } else if (flags == nullptr) {
+    return -1;
+  }
   if (wt_dtype == kBF16 && out_dtype == kBF16)
-    return launch_band<In, __nv_bfloat16>(x, k, f, wt, band, y, g, b, r, w, u, m, s);
+    return launch_band<In, __nv_bfloat16>(x, k, f, wt, band, flags, y, g, b, r, w, u, m, s);
   if (wt_dtype == kBF16 && out_dtype == kF32)
-    return launch_band<In, float>(x, k, f, wt, band, y, g, b, r, w, u, m, s);
+    return launch_band<In, float>(x, k, f, wt, band, flags, y, g, b, r, w, u, m, s);
   if (wt_dtype == kF32 && out_dtype == kBF16)
-    return launch_f32<In, __nv_bfloat16>(x, k, f, wt, band, y, g, b, r, w, u, m, s);
+    return launch_f32<In, __nv_bfloat16>(x, k, f, wt, band, flags, y, g, b, r, w, u, m, s);
   if (wt_dtype == kF32 && out_dtype == kF32)
-    return launch_f32<In, float>(x, k, f, wt, band, y, g, b, r, w, u, m, s);
+    return launch_f32<In, float>(x, k, f, wt, band, flags, y, g, b, r, w, u, m, s);
   return -1;
 }
 
@@ -824,27 +958,29 @@ int dispatch_wt(const void* x, const int32_t* k, const float* f, const void* wt,
 extern "C" {
 
 // Returns 0 on success, a cudaError_t code after a failed launch, -1 for a
-// type combination the kernel does not take (or no band scratch), -2 for a
+// type combination the kernel does not take (or missing scratch), -2 for a
 // grid too large.  Pointers are device pointers of contiguous (G, B, R, W)
-// input, (B*R,) k and f, (B, M, U) taps, (G, B, M, R) output and (B,
+// input, (B*R,) k and f, (B, M, U) taps, (G, B, M, R) output, (B,
 // ceil(M / T), 2) int32 scratch for the band pass, which runs first on the
 // same stream, with T = peclr_tap_band_m() for bf16 taps and
-// peclr_tap_band_m_f32() for f32 taps.
+// peclr_tap_band_m_f32() for f32 taps, and (B, ceil(R / F)) uint8 scratch for
+// the non-finite flags of a bf16 or f32 input (ignored for uint8), with F =
+// peclr_flag_rows().
 int peclr_shift_lerp_matmul(const void* x, int in_dtype, const int32_t* k,
                             const float* f, const void* wt, int wt_dtype, int32_t* band,
-                            void* y, int out_dtype, int g, int b, int r, int w, int u,
-                            int m, void* stream) {
+                            uint8_t* flags, void* y, int out_dtype, int g, int b, int r,
+                            int w, int u, int m, void* stream) {
   if (static_cast<long long>(g) * b * r * m == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (in_dtype == kU8)
-    return dispatch_wt<uint8_t>(x, k, f, wt, wt_dtype, band, y, out_dtype, g, b, r, w, u,
-                                m, s);
+    return dispatch_wt<uint8_t>(x, k, f, wt, wt_dtype, band, flags, y, out_dtype, g, b, r, w,
+                                u, m, s);
   if (in_dtype == kBF16)
-    return dispatch_wt<__nv_bfloat16>(x, k, f, wt, wt_dtype, band, y, out_dtype, g, b, r,
-                                      w, u, m, s);
+    return dispatch_wt<__nv_bfloat16>(x, k, f, wt, wt_dtype, band, flags, y, out_dtype, g, b,
+                                      r, w, u, m, s);
   if (in_dtype == kF32)
-    return dispatch_wt<float>(x, k, f, wt, wt_dtype, band, y, out_dtype, g, b, r, w, u, m,
-                              s);
+    return dispatch_wt<float>(x, k, f, wt, wt_dtype, band, flags, y, out_dtype, g, b, r, w,
+                              u, m, s);
   return -1;
 }
 
@@ -858,6 +994,8 @@ int peclr_tap_band(const void* wt, int wt_dtype, int32_t* band, int b, int m, in
 int peclr_tap_band_m() { return kBandM; }
 
 int peclr_tap_band_m_f32() { return kF32TileM; }
+
+int peclr_flag_rows() { return kFlagRows; }
 
 const char* peclr_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -1,10 +1,12 @@
 """Device selection for the port's entry points.
 
 Entry points run on the card unless the caller names another device; there
-is no silent move to the CPU.  Both TF32 switches are turned off, so float32
-convolutions and matmuls run in full float32 like the reference model
-(cuDNN would otherwise run f32 convolutions in TF32), and bf16 matmuls
-reduce in float32.
+is no silent move to the CPU.  `full_float32` turns both TF32 switches off,
+so float32 convolutions and matmuls run in full float32 like the reference
+model (cuDNN would otherwise run f32 convolutions in TF32), and bf16
+matmuls reduce in float32.  `resolve_device` calls it, and so do the step
+factories (train/step.py, train/finetune.py) for a model on the card, so a
+caller that moves a model to the card itself gets full float32 too.
 
 `device_constant` keeps the small constant tensors of the ops (the ImageNet
 statistics, the grey weights, the default intrinsics) on each device: a
@@ -45,9 +47,23 @@ def device_constant(values: Sequence, device: DeviceLike,
     return _constant(_frozen(values), torch.device(device), dtype)
 
 
+def full_float32() -> None:
+    """Turn off TF32 in cuDNN's convolutions and cuBLAS's matmuls, and the
+    reduced-precision reduction of bf16 matmuls (process-wide flags)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+def on_cuda(model: torch.nn.Module) -> bool:
+    """Whether the model's parameters lie on a CUDA device."""
+    return any(p.is_cuda for p in model.parameters())
+
+
 def resolve_device(device: DeviceLike = None) -> torch.device:
-    """`device`, or the current CUDA card when None.  Raises when a CUDA
-    device is asked for and none is present."""
+    """`device`, or the current CUDA card when None, with TF32 off
+    (`full_float32`) whatever the device.  Raises when a CUDA device is
+    asked for and none is present."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -57,7 +73,5 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             )
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    full_float32()
     return dev

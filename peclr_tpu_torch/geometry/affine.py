@@ -19,6 +19,15 @@ def _stack3(rows) -> torch.Tensor:
     return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
 
 
+def rotation_matrix_2d(angle_deg, scale=1.0) -> torch.Tensor:
+    """(..., 2, 2) rotation by `angle_deg` counter-clockwise in the math
+    convention (clockwise on y-down image axes, as OpenCV)."""
+    rad = torch.deg2rad(_f32(angle_deg))
+    c, s = torch.cos(rad) * scale, torch.sin(rad) * scale
+    return torch.stack([torch.stack([c, s], dim=-1),
+                        torch.stack([-s, c], dim=-1)], dim=-2)
+
+
 def rotation_about_center(angle_deg, center_x, center_y,
                           scale=1.0) -> torch.Tensor:
     """(..., 3, 3) homogeneous rotation about (center_x, center_y), as

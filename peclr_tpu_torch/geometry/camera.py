@@ -83,6 +83,12 @@ def convert_2_5d_to_3d(joints25d: torch.Tensor, scale: torch.Tensor,
     return rays * z[..., None]
 
 
+def error_in_conversion(true_joints3d, calc_joints3d) -> torch.Tensor:
+    """Max abs error of a 3D -> 2.5D -> 3D round trip."""
+    return torch.max(torch.abs(torch.as_tensor(calc_joints3d)
+                               - torch.as_tensor(true_joints3d)))
+
+
 def _with_wrist(joints3d: torch.Tensor, wrist: torch.Tensor) -> torch.Tensor:
     return torch.cat([joints3d[..., :WRIST, :], wrist.unsqueeze(-2),
                       joints3d[..., WRIST + 1:, :]], dim=-2)

@@ -11,6 +11,7 @@ regressor's output order (16 regressed joints, then the 5 fingertips).
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 NUM_JOINTS = 21
 
@@ -54,6 +55,7 @@ JOINT_ORDERS: dict[str, dict[str, int]] = {
 WRIST = JOINT_ORDERS["ait"]["wrist"]          # 0
 INDEX_MCP = JOINT_ORDERS["ait"]["index_mcp"]  # 2
 MIDDLE_MCP = JOINT_ORDERS["ait"]["middle_mcp"]  # 3
+MIDDLE_PIP = JOINT_ORDERS["ait"]["middle_pip"]  # 8
 
 
 def permutation(src: str, dst: str) -> np.ndarray:
@@ -63,3 +65,28 @@ def permutation(src: str, dst: str) -> np.ndarray:
     for name, d in dst_map.items():
         p[d] = src_map[name]
     return p
+
+
+def reorder(joints, src: str, dst: str):
+    """Joints (..., 21, C), numpy or torch, from order `src` to `dst`."""
+    p = permutation(src, dst)
+    if isinstance(joints, torch.Tensor):
+        return joints[..., torch.from_numpy(p).long().to(joints.device), :]
+    return joints[..., p, :]
+
+
+def freihand_to_ait(joints):
+    return reorder(joints, "freihand", "ait")
+
+
+def ait_to_freihand(joints):
+    """AIT -> FreiHAND/Zimmermann order (the leaderboard's)."""
+    return reorder(joints, "ait", "freihand")
+
+
+def mano_to_ait(joints):
+    return reorder(joints, "mano", "ait")
+
+
+def interhand_to_ait(joints):
+    return reorder(joints, "interhand", "ait")

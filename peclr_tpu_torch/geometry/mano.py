@@ -32,6 +32,22 @@ def mano_regressor() -> np.ndarray:
     return _MANO_MAT
 
 
+def pseudo_joint_bound(vertices: np.ndarray) -> np.ndarray:
+    """21 pseudo-joints spanning the mesh's bounding box, a weak label for
+    YT3DH: 5 at the max corner, 5 at the min corner, 5 at (min x, max y,
+    min z), 5 at (max x, min y, max z), then the centre."""
+    max_v = np.max(vertices, axis=0)
+    min_v = np.min(vertices, axis=0)
+    center = (max_v + min_v) / 2.0
+    return np.concatenate([
+        np.tile(max_v, (5, 1)),
+        np.tile(min_v, (5, 1)),
+        np.tile([min_v[0], max_v[1], min_v[2]], (5, 1)),
+        np.tile([max_v[0], min_v[1], max_v[2]], (5, 1)),
+        center[None, :],
+    ]).astype(np.float32)
+
+
 def joints_from_mano_mesh(vertices: np.ndarray) -> np.ndarray:
     """(..., 778, 3) mesh vertices -> (..., 21, 3) joints in mano order."""
     vertices = np.asarray(vertices, dtype=np.float32)

@@ -15,7 +15,12 @@ transposed (m before r), the layout the warp's next pass reads.
 
 The kernel first finds each tile's band, the range of u where the taps of
 the tile's outputs are not zero (`tap_band`; tiles of BAND_M outputs for
-bf16 taps, BAND_M_F32 for f32 taps), and multiplies only that range.
+bf16 taps, BAND_M_F32 for f32 taps), and multiplies only that range.  For a
+bf16 or f32 source the same launch also flags each tile of FLAG_ROWS rows
+(of every plane) that holds an Inf, a NaN or a value of magnitude 1e38 or
+more (only such a row can have a window element that is not finite), and
+the product walks every tap for a flagged tile, so the result is the
+dense product's there too.
 
 `fused_shift_lerp_matmul` launches the kernel for CUDA tensors and counts
 each call in `fused_shift_lerp_matmul.launches` (a call is two launches,
@@ -40,6 +45,7 @@ from peclr_tpu_torch.ops.shift_lerp import (
 
 BAND_M = 32  # outputs m per band tile of bf16 taps (kBandM of the CUDA source)
 BAND_M_F32 = 8  # outputs m per band tile of f32 taps (kF32TileM)
+FLAG_ROWS = 32  # rows r of each plane a non-finite flag covers (kFlagRows)
 
 
 def band_tile(dtype: torch.dtype) -> int:
@@ -114,8 +120,9 @@ def _library() -> ctypes.CDLL:
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p,
         ]
         lib.peclr_tap_band.restype = ctypes.c_int
         lib.peclr_tap_band.argtypes = [
@@ -125,14 +132,14 @@ def _library() -> ctypes.CDLL:
         lib.peclr_cuda_error_string.restype = ctypes.c_char_p
         lib.peclr_cuda_error_string.argtypes = [ctypes.c_int]
         for name, want in (("peclr_tap_band_m", BAND_M),
-                           ("peclr_tap_band_m_f32", BAND_M_F32)):
+                           ("peclr_tap_band_m_f32", BAND_M_F32),
+                           ("peclr_flag_rows", FLAG_ROWS)):
             getter = getattr(lib, name)
             getter.restype = ctypes.c_int
             getter.argtypes = []
             if getter() != want:
-                raise RuntimeError(f"csrc/shift_lerp_matmul.cu tiles the band "
-                                   f"by {getter()} outputs ({name}), not "
-                                   f"{want}")
+                raise RuntimeError(f"csrc/shift_lerp_matmul.cu has {name}() "
+                                   f"= {getter()}, not {want}")
     return lib
 
 
@@ -152,9 +159,11 @@ def fused_shift_lerp_matmul(rows4: torch.Tensor, k: torch.Tensor,
 
     On the card only each tile's band of nonzero taps is multiplied, with
     bf16 and with f32 taps.  The skipped terms are taps of exactly zero, so
-    the f32 sums are those of the dense product while the window is finite;
-    a non-finite source value can propagate differently from the dense
-    product (Inf * 0 is NaN there and skipped here)."""
+    the f32 sums are those of the dense product while the window is finite.
+    Where a row of a bf16 or f32 source holds an Inf, a NaN or a value of
+    magnitude 1e38 or more, the product walks every tap for its rows' tile,
+    so NaN and +-Inf come out where the dense product has them (Inf * 0 is
+    NaN)."""
     if rows4.device.type == "cpu":
         return shift_lerp_matmul_plain(rows4, k, f, w_t, out_dtype)
     if rows4.device.type != "cuda":
@@ -164,13 +173,18 @@ def fused_shift_lerp_matmul(rows4: torch.Tensor, k: torch.Tensor,
     _, m, u = w_t.shape
     out = torch.empty((g, b, m, r), dtype=out_dtype, device=rows4.device)
     band = _band_scratch(w_t)
+    # the row tiles' non-finite flags: a uint8 source has none
+    flags = (None if rows4.dtype == torch.uint8 else
+             torch.empty((b, -(-r // FLAG_ROWS)), dtype=torch.uint8,
+                         device=rows4.device))
     lib = _library()
     with torch.cuda.device(rows4.device):
         stream = torch.cuda.current_stream(rows4.device).cuda_stream
         rc = lib.peclr_shift_lerp_matmul(
             rows4.data_ptr(), _DTYPE_CODES[rows4.dtype], k.data_ptr(),
             f.data_ptr(), w_t.data_ptr(), _DTYPE_CODES[w_t.dtype],
-            band.data_ptr(), out.data_ptr(),
+            band.data_ptr(), None if flags is None else flags.data_ptr(),
+            out.data_ptr(),
             _DTYPE_CODES[out_dtype], g, b, r, w, u, m, stream,
         )
     if rc == -2:

@@ -1,0 +1,93 @@
+"""The accuracy harnesses of the port (counterparts of the reference
+repository's scripts/accuracy_proxy.py and scripts/downstream_chain.py):
+
+    python -m peclr_tpu_torch.scripts.accuracy_proxy [...]
+    python -m peclr_tpu_torch.scripts.downstream_chain [...]
+
+Both run on the card unless given `--device cpu` and write their artifacts
+under tests/fixtures/torch_accuracy/.  This module holds what they share:
+the reference's initial weights (their distribution: the flax defaults),
+the card's name for the records, and the step loop.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import subprocess
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+ARTIFACT_DIR = os.path.join(REPO_ROOT, "tests", "fixtures", "torch_accuracy")
+
+#: flax's truncated normal: a unit normal cut at +-2 has this standard
+#: deviation, so variance_scaling divides it out
+_TRUNC_STD = 0.87962566103423978
+
+
+def _variance_scaling_(weight: torch.Tensor, scale: float, fan: int,
+                       generator: torch.Generator) -> None:
+    std = math.sqrt(scale / fan) / _TRUNC_STD
+    nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std,
+                          generator=generator)
+
+
+@torch.no_grad()
+def init_as_reference(model: nn.Module, seed: int) -> nn.Module:
+    """Re-draw the model's weights from `seed` with the distributions of the
+    reference's `model.init` (flax's defaults): convolutions and dense
+    layers lecun-normal (truncated, variance 1 / fan_in), the ResNet stem
+    He-normal on fan_out (variance 2 / fan_out), zero biases, BatchNorm
+    scale 1, bias 0, running mean 0 and variance 1.  The numbers are
+    torch's, not jax.random's.  Returns the model."""
+    gen = torch.Generator().manual_seed(seed)
+    for name, module in model.named_modules():
+        if isinstance(module, nn.Conv2d):
+            w = module.weight
+            o, i, kh, kw = w.shape
+            stem = kh == 7  # the 7x7 stem conv of every ResNet
+            _variance_scaling_(w, 2.0 if stem else 1.0,
+                               o * kh * kw if stem else i * kh * kw, gen)
+        elif isinstance(module, nn.Linear):
+            _variance_scaling_(module.weight, 1.0, module.in_features, gen)
+        elif isinstance(module, nn.modules.batchnorm._BatchNorm):
+            module.reset_parameters()  # scale 1, bias 0, mean 0, var 1
+            continue
+        else:
+            continue
+        if getattr(module, "bias", None) is not None:
+            module.bias.zero_()
+    return model
+
+
+def card_name(device: torch.device) -> str:
+    """nvidia-smi's `name, power.limit` of the card the run used, or the
+    device's type where it is not a card."""
+    if device.type != "cuda":
+        return device.type
+    index = torch.cuda.current_device() if device.index is None else device.index
+    out = subprocess.run(
+        ["nvidia-smi", f"--id={index}", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def run_steps(step: Callable, state, steps: int,
+              batch_at: Callable[[int], Dict[str, torch.Tensor]],
+              generator: Optional[torch.Generator],
+              after: Optional[Callable[[int, object], None]] = None
+              ) -> Tuple[object, Dict[str, torch.Tensor]]:
+    """`steps` calls of step(state, batch_at(i), generator), after(i + 1,
+    state) after each; returns the state and the last step's metrics, which
+    stay on the device.  Nothing here waits on the card."""
+    metrics: Dict[str, torch.Tensor] = {}
+    for i in range(steps):
+        state, metrics = step(state, batch_at(i), generator)
+        if after is not None:
+            after(i + 1, state)
+    return state, metrics

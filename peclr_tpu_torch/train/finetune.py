@@ -18,6 +18,7 @@ import torch
 from torch import nn
 
 from peclr_tpu_torch.config.defaults import AugmentationFlags, AugmentationParams
+from peclr_tpu_torch.device import full_float32, on_cuda
 from peclr_tpu_torch.eval.evaluate import Draws, supervised_sample_batch
 from peclr_tpu_torch.losses.supervised import l1_loss_25d, loss_3d
 from peclr_tpu_torch.models.port import peclr_to_torchvision
@@ -42,7 +43,10 @@ def make_finetune_step(
     loss_z (+ loss_3d_weight * loss_3d).  The step updates state.model and
     state.optimizer in place and advances state.step; its metrics stay
     device tensors (nothing waits on the card).  `compute_dtype` overrides
-    the warp's default compute type."""
+    the warp's default compute type.  For a model on the card TF32 is
+    turned off (device.py:full_float32): the model runs in full float32."""
+    if on_cuda(model):
+        full_float32()
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator],

@@ -90,7 +90,9 @@ class PretrainOptimizer(torch.optim.Optimizer):
     chain).
 
     Two parameter groups: the decayed parameters (weight_decay) and the
-    rest (0)."""
+    rest (0).  A parameter that does not require a gradient is frozen: it
+    is left out and never moves (the reference zeroes such a subtree's final
+    updates).  Every other one is updated, with or without a gradient."""
 
     def __init__(self, model: nn.Module, schedule: Schedule,
                  weight_decay: float = 1e-6,
@@ -98,7 +100,7 @@ class PretrainOptimizer(torch.optim.Optimizer):
                  betas: Tuple[float, float] = (0.9, 0.999),
                  eps: float = 1e-8, lars: bool = True):
         mask = no_decay_mask(model)
-        named = dict(model.named_parameters())
+        named = {n: p for n, p in model.named_parameters() if p.requires_grad}
         groups = [
             {"params": [p for n, p in named.items() if mask[n]],
              "weight_decay": weight_decay},

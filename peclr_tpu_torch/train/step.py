@@ -48,6 +48,7 @@ import torch
 from torch import nn
 
 from peclr_tpu_torch.config.defaults import AugmentationFlags, AugmentationParams
+from peclr_tpu_torch.device import full_float32, on_cuda
 from peclr_tpu_torch.losses.equivariance import peclr_projections
 from peclr_tpu_torch.losses.ntxent import ntxent_loss
 from peclr_tpu_torch.models.batchnorm import set_mesh
@@ -129,10 +130,13 @@ def make_peclr_train_step(
 
     With a mesh (module docstring) the batch holds this rank's accum*B/W
     rows, `draws` the global 2B parameters of each microbatch, and the
-    metrics are the global batch's."""
+    metrics are the global batch's.  For a model on the card TF32 is
+    turned off (device.py:full_float32)."""
     if augmentations is None:
         augmentations = flags.active()
     _check_precision(precision)
+    if on_cuda(model):
+        full_float32()
     image_size = tuple(aug_params.resize_shape)
     forward = model
     if mesh is not None:
@@ -217,10 +221,13 @@ def make_peclr_eval_step(
     torch.inference_mode, no update.  `draws` (2B parameters) replaces the
     generator's draws, as in the train step.  With a mesh the batch is this
     rank's B/W rows, `draws` the global 2B, and the loss the global
-    batch's (the BatchNorms need nothing in eval mode)."""
+    batch's (the BatchNorms need nothing in eval mode).  For a model on the
+    card TF32 is turned off, as in the train step."""
     if augmentations is None:
         augmentations = flags.active()
     _check_precision(precision)
+    if on_cuda(model):
+        full_float32()
     image_size = tuple(aug_params.resize_shape)
 
     @torch.inference_mode()

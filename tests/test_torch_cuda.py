@@ -943,3 +943,88 @@ def test_paths_make_no_host_waits(card, name):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
+
+
+def test_step_factories_turn_tf32_off(card):
+    """A model moved to the card by its caller, not through resolve_device:
+    building the pretrain step, its eval step or the fine-tune step turns
+    all three TF32 switches off."""
+    from peclr_tpu_torch.config.defaults import (
+        AugmentationFlags,
+        AugmentationParams,
+    )
+    from peclr_tpu_torch.models import PeCLRModel, RN25DPose
+    from peclr_tpu_torch.train.finetune import make_finetune_step
+    from peclr_tpu_torch.train.optimizer import build_optimizer
+    from peclr_tpu_torch.train.step import (
+        make_peclr_eval_step,
+        make_peclr_train_step,
+    )
+
+    flags, params = AugmentationFlags(crop=True, resize=True), AugmentationParams()
+    switches = (
+        (torch.backends.cudnn, "allow_tf32"),
+        (torch.backends.cuda.matmul, "allow_tf32"),
+        (torch.backends.cuda.matmul,
+         "allow_bf16_reduced_precision_reduction"),
+    )
+    peclr, rn25d = PeCLRModel("18").to(card), RN25DPose("18").to(card)
+    builds = {
+        "pretrain": lambda: make_peclr_train_step(
+            peclr, build_optimizer(peclr, 1e-4, 8, 1, 10, 1)[0], flags,
+            params),
+        "pretrain_eval": lambda: make_peclr_eval_step(peclr, flags, params),
+        "finetune": lambda: make_finetune_step(
+            rn25d, build_optimizer(rn25d, 1e-4, 8, 1, 10, 1)[0], flags,
+            params),
+    }
+    try:
+        for name, build in builds.items():
+            for module, attr in switches:
+                setattr(module, attr, True)
+            build()
+            for module, attr in switches:
+                assert getattr(module, attr) is False, (name, attr)
+    finally:
+        for module, attr in switches:
+            setattr(module, attr, False)
+
+
+@pytest.mark.parametrize("src_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tap_dtype", [torch.bfloat16, torch.float32])
+def test_shift_matmul_kernel_keeps_nonfinite_windows(card, src_dtype,
+                                                     tap_dtype):
+    """Kernel 4 on float sources with Inf and NaN under zero taps and in
+    rows of all-zero tiles: NaN, +Inf and -Inf exactly where its dense plain
+    version has them, the other values within 1e-2 (sum order); rows past
+    one block (R = 70) and images with finite rows beside the flagged ones;
+    one counted launch a call."""
+    rng = np.random.default_rng(14)
+    g, b, r, w, u, m = 3, 4, 70, 224, 256, 130
+    x = rng.uniform(0, 255, (g, b, r, w)).astype(np.float32)
+    off = rng.uniform(-(u + 40), w + 40, (b * r,))
+    k = np.clip(np.floor(off), -(u + 2), w).astype(np.int32)
+    f = (off - np.floor(off)).astype(np.float32)
+    for gi, bi, ri, col, val in ((0, 0, 3, 100, np.inf), (1, 0, 40, 7, -np.inf),
+                                 (2, 1, 65, 200, np.nan), (0, 3, 33, 0, np.nan),
+                                 (1, 2, 10, 223, np.inf)):
+        x[gi, bi, ri, col] = val
+        k[bi * r + ri] = col - 60  # within the row's window
+    x[2, 2, 50, 120:122] = 3.4e38  # finite in f32, Inf once cast to bf16
+    k[2 * r + 50] = 60
+    s = torch.from_numpy(rng.uniform(1.0, 1.75, (b,)).astype(np.float32))
+    w_t = _area_matrix(s, u, m, transposed=True)
+    w_t[3] = 0  # image 3: every tile's band is (0, 0)
+    x_d = torch.from_numpy(x).to(card, src_dtype)
+    k_d, f_d = torch.from_numpy(k).to(card), torch.from_numpy(f).to(card)
+    w_d = w_t.to(card, tap_dtype)
+    launches = fused_shift_lerp_matmul.launches
+    got = fused_shift_lerp_matmul(x_d, k_d, f_d, w_d, torch.float32)
+    ref = shift_lerp_matmul_plain(x_d, k_d, f_d, w_d, torch.float32)
+    torch.cuda.synchronize()
+    assert fused_shift_lerp_matmul.launches == launches + 1
+    assert bool(torch.isnan(ref).any()) and bool(torch.isnan(ref[:, 3]).any())
+    for mask in (torch.isnan, torch.isposinf, torch.isneginf):
+        assert torch.equal(mask(got), mask(ref)), mask.__name__
+    finite = torch.isfinite(ref)
+    assert (got[finite] - ref[finite]).abs().max().item() <= 1e-2

@@ -133,3 +133,58 @@ def test_no_plain_fallback_off_the_cpu():
     w_t = torch.empty((2, 4, 8), device="meta")
     with pytest.raises(ValueError, match="no shift"):
         fused_shift_lerp_matmul(rows4, k, f, w_t)
+
+
+def _nonfinite_inputs(rng, src_dtype):
+    """Float sources holding Inf, -Inf and NaN, some under zero taps and
+    some out of every window; banded taps (each output 4 taps of 0.25), and
+    image 1's taps all zero (tiles whose band is (0, 0)).  Two adjacent
+    3.4e38 make a window element finite in f32 and Inf in bf16."""
+    g, b, r, w, u, m = 2, 2, 8, 128, 128, 16
+    rows4 = rng.uniform(0, 255, (g, b, r, w)).astype(np.float32)
+    k = rng.integers(-20, 20, (b * r,)).astype(np.int32)
+    k[3] = w + 10  # a clamped row: its Inf is out of the window
+    f = rng.uniform(0, 1, (b * r,)).astype(np.float32)
+    rows4[0, 0, 1, 60] = np.inf       # under zero and nonzero taps
+    rows4[1, 0, 2, 5] = -np.inf
+    rows4[0, 0, 4, 100] = np.nan
+    rows4[1, 0, 3, 50] = np.inf       # row 3 is clamped
+    rows4[0, 1, 5, 70] = np.nan       # image 1: all taps zero
+    rows4[1, 1, 6, 30] = np.inf
+    rows4[0, 0, 6, 40:42] = 3.4e38
+    w_t = np.zeros((b, m, u), np.float32)
+    for mi in range(m):
+        w_t[0, mi, 8 * mi:8 * mi + 4] = 0.25
+    src = torch.from_numpy(rows4)
+    if src_dtype == "bf16":
+        src = src.to(torch.bfloat16)
+        rows4 = src.float().numpy()
+    return src, rows4, k, f, w_t
+
+
+@pytest.mark.parametrize("src_dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("tap_dtype", ["f32", "bf16"])
+def test_nonfinite_windows_match_pallas_interpret(rng, src_dtype, tap_dtype):
+    """Inf or NaN window elements under zero taps, and under a tile of all
+    zero taps, are NaN in the dense product, as in the reference's kernel:
+    the NaN, +Inf and -Inf masks equal, the other values within rtol 1e-5 /
+    atol 1e-2 (sum order).  Kernel 4 walks every tap of a tile whose rows
+    hold such an element to give the same (tests/test_torch_cuda.py)."""
+    src, rows4, k, f, w_t = _nonfinite_inputs(rng, src_dtype)
+    jdt, tdt = ((jnp.bfloat16, torch.bfloat16) if tap_dtype == "bf16"
+                else (jnp.float32, torch.float32))
+    ref = np.asarray(jax_matmul(
+        jnp.asarray(rows4).astype(jnp.bfloat16 if src_dtype == "bf16"
+                                  else jnp.float32),
+        jnp.asarray(k), jnp.asarray(f), jnp.asarray(w_t).astype(jdt),
+        out_dtype=jnp.float32, interpret=True))
+    got = shift_lerp_matmul_plain(src, torch.from_numpy(k),
+                                  torch.from_numpy(f),
+                                  torch.from_numpy(w_t).to(tdt)).numpy()
+    assert np.isnan(ref).any() and np.isposinf(ref).any()
+    assert np.isnan(ref[:, 1]).any()  # the all-zero tile
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(ref))
+    np.testing.assert_array_equal(np.isposinf(got), np.isposinf(ref))
+    np.testing.assert_array_equal(np.isneginf(got), np.isneginf(ref))
+    finite = np.isfinite(ref)
+    np.testing.assert_allclose(got[finite], ref[finite], rtol=1e-5, atol=1e-2)
