@@ -149,7 +149,17 @@ one JSON line that carries the card's name and power limit:
               losses, kernel 1 launched 2 a step, 2 an evaluate batch and 4
               a leaderboard batch, kernels 2-4 never, no host wait inside a
               pretrain or fine-tune loop; then the proxy's pretrain (RN50, 64
-              px, 8 steps of 64) and one linear_probe
+              px, 8 steps of 64) and one linear_probe; then the proxy's
+              pretrain at RN152 at the recipe (128 x 16 of 128-px views,
+              LARS) cut to 3 steps of each kind: finite losses, kernel 1
+              launched 2 a microbatch, kernels 2-4 never, each step's ms
+              and the PeCLR/SimCLR ratio after the first step
+ 12a. step_gap  the proxy's RN50 recipe step of each kind (PeCLR, SimCLR)
+              on one model with the same batch and draws: the first step
+              of each, then 3 of each in turns (host and wall ms, 32
+              launches of kernel 1 a step, none of the others), then one
+              profiled step of each: launches, aten calls, device busy ms
+              and share
  13. kernels  one line listing every ported kernel
 Then the card's nvidia-smi line, and last the contract line
 {"ok": true, "device": {...}}.  No weights are read (they are made from a
@@ -1112,6 +1122,7 @@ def trace_summary(torch, prof, wall_ms: float) -> dict:
         "profiled_wall_ms": wall_ms, "device_busy_ms": busy / 1e3,
         "device_busy_share": busy / 1e3 / wall_ms,
         "kernel_launches": len(kernels),
+        "aten_calls": sum(a.count for a in ops if a.key.startswith("aten::")),
         "top_kernels_ms": {name[:90]: us / 1e3 for name, us in top},
         "top_host_self_ms": {a.key[:70]: [a.count, a.self_cpu_time_total / 1e3]
                              for a in host},
@@ -2737,6 +2748,24 @@ def pred_fh_affines(torch, b, seed):
 # --------------------------------------------------------------------------
 
 
+def nonfinite_bound(torch, x, k, f, w_t, out):
+    """Least time (ms) of the fused shift+matmul on a float source that may
+    hold Inf or NaN anywhere: every source element read once (a non-finite
+    value under a zero tap still decides the output), the taps, k and f
+    read once, each output written once; or the multiply-adds of the
+    nonzero taps (tensor cores for bf16 taps) and 3 f32 operations a
+    source element, if longer."""
+    g, _, r, _ = x.shape
+    moved = sum(t.numel() * t.element_size() for t in (x, k, f, w_t, out))
+    mac_rate = BF16_TC_FLOPS if w_t.dtype == torch.bfloat16 else F32_FLOPS
+    nonzero = int((w_t != 0).sum().item())
+    ops_ms = (2 * g * r * nonzero / mac_rate
+              + 3 * x.numel() / F32_FLOPS) * 1e3
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
+                                                           "operations")
+
+
 def phase_matmul_nonfinite(torch, dev):
     """Kernel 4 on float sources that hold Inf and NaN, at the recipe's
     pass-2 shapes ((3, 256, 128, 224) sources, taps (256, 128, 256) at
@@ -2791,9 +2820,11 @@ def phase_matmul_nonfinite(torch, dev):
             max_abs = (got[ok] - ref[ok]).abs().max().item()
             check(max_abs <= 1e-2, f"{name}: max_abs {max_abs} > 1e-2")
             clean = finite.to(src_dtype)
+            bound, bound_by = nonfinite_bound(torch, x, k, f, taps_t, got)
             row = {"case": name, "shape_in": list(x.shape),
                    "taps": list(taps_t.shape), "max_abs": max_abs,
                    "tolerance": 1e-2, "ref_counts": masks,
+                   "bound_ms": bound, "bound_by": bound_by,
                    "device_ms": device_ms(lambda: fused_shift_lerp_matmul(
                        x, k, f, taps_t, torch.float32), 10),
                    "finite_source_device_ms": device_ms(
@@ -2853,6 +2884,13 @@ ACCURACY_CHAIN_ARGV = ["--resnet", "50", "--crop", "128", "--batch", "64",
                        "--num-unique", "24", "--pretrain-steps", "8",
                        "--finetune-steps", "8", "--freeze-encoder"]
 ACCURACY_PROXY_STEPS, ACCURACY_PROXY_IMAGES = 8, 512
+#: the proxy's recipe (128 x 16, LARS at 1e-5, 128-px canvases and views)
+#: at RN152, cut in steps only: its pool is the curves' 4,096 frames
+RECIPE_PROXY = dict(batch=MICROBATCH, accum=ACCUM, optimizer="LARS",
+                    lr=1e-5, view=128)
+RN152_STEPS, RECIPE_IMAGES = 3, 4096
+#: the step-gap phase: timed steps of each kind, in turns, after one each
+STEP_GAP_REPS = 3
 
 
 def phase_accuracy(torch, dev):
@@ -2934,6 +2972,7 @@ def phase_accuracy(torch, dev):
           f"accuracy: proxy losses {losses}, probe {probe}")
     check(proxy_counts["shift_lerp_grouped"] == 2 * ACCURACY_PROXY_STEPS,
           f"accuracy: proxy launches {proxy_counts}")
+    rn152 = accuracy_rn152(torch, dev)
     run = {"chain_seconds": chain_seconds, "chain_launches": chain_counts,
            "chain_phases": chain["phases"],
            "chain_auc_procrustes": {k: r["auc_procrustes"]
@@ -2942,6 +2981,119 @@ def phase_accuracy(torch, dev):
            "proxy_seconds": proxy_seconds, "proxy_launches": proxy_counts,
            "proxy_losses": losses, "proxy_probe_epe_px": probe}
     emit("accuracy", chain_argv=ACCURACY_CHAIN_ARGV, **run)
+    emit("accuracy_rn152", **rn152)
+    return {**run, "rn152": rn152}
+
+
+def accuracy_rn152(torch, dev) -> dict:
+    """The proxy's pretrain at RN152 at the recipe (RECIPE_PROXY), cut to
+    RN152_STEPS steps of each kind: finite losses, kernel 1 launched 2 a
+    microbatch and kernels 2-4 never, each step's ms (the card synchronised
+    after each, through the probe hook), and the PeCLR/SimCLR ratio of the
+    steps after the first."""
+    from peclr_tpu_torch.scripts import accuracy_proxy
+
+    t0 = time.perf_counter()
+    imgs, joints = accuracy_proxy.render_batch(np.random.default_rng(5),
+                                               RECIPE_IMAGES)
+    out = {"steps": RN152_STEPS, **RECIPE_PROXY}
+    for kind in ("peclr", "simclr"):
+        stamps = []
+
+        def stamp(_done, _embed):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+
+        reset_counts()
+        _, losses, _ = accuracy_proxy.pretrain(
+            kind, imgs, joints, RN152_STEPS, seed=5, resnet="152",
+            probe_hook=stamp, probe_every=1, device=dev, **RECIPE_PROXY)
+        counts = kernel_counts()
+        check(all(math.isfinite(v) for v in losses),
+              f"accuracy rn152: {kind} losses {losses}")
+        for kname, launched in counts.items():
+            want = (2 * ACCUM * RN152_STEPS
+                    if kname == "shift_lerp_grouped" else 0)
+            check(launched == want, f"accuracy rn152: {kind} launched "
+                  f"{kname} {launched} times, want {want}")
+        out[kind] = {"step_ms": [(b - a) * 1e3
+                                 for a, b in zip(stamps, stamps[1:])],
+                     "losses": losses, "launches": counts}
+    after_first = {kind: float(np.mean(out[kind]["step_ms"][1:]))
+                   for kind in ("peclr", "simclr")}
+    out["ms_per_step_after_first"] = after_first
+    out["peclr_over_simclr"] = after_first["peclr"] / after_first["simclr"]
+    out["phase_seconds"] = time.perf_counter() - t0
+    return out
+
+
+def phase_step_gap(torch, dev):
+    """Why the accuracy runs recorded a PeCLR step at up to 2.2x a SimCLR
+    one: the proxy's RN50 recipe step (RECIPE_PROXY, bf16, grouped route)
+    of each kind on one model, the same batch and draws.  The first step of
+    each kind (whichever runs first pays what is left of the process's
+    one-time costs), then STEP_GAP_REPS steps of each in turns, then one
+    profiled step of each (trace_summary: launches, device busy ms and
+    share, the host's aten calls; earlier phases have warmed the profiler
+    up).  Each step's host ms (until its call returns) and wall ms (until
+    the card is done); kernel 1 launched 2 a microbatch, the others
+    never."""
+    from peclr_tpu_torch.data.pipeline import host_to_device
+    from peclr_tpu_torch.models import PeCLRModel
+    from peclr_tpu_torch.ops import augment
+    from peclr_tpu_torch.scripts import accuracy_proxy, init_as_reference
+
+    t_phase = time.perf_counter()
+    kinds = ("peclr", "simclr")
+    view = RECIPE_PROXY["view"]
+    model = init_as_reference(PeCLRModel("50"), 5).to(dev)
+    built = {kind: accuracy_proxy.make_pretrain_step(
+        kind, model, 640, **RECIPE_PROXY) for kind in kinds}
+    imgs, joints = accuracy_proxy.render_batch(np.random.default_rng(5),
+                                               MICROBATCH * ACCUM)
+    batch = {"image": host_to_device(imgs, dev),
+             "joints25d": host_to_device(joints, dev)}
+    flags, params = accuracy_proxy.augmentation(view)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    draws = [augment.draw(gen, 2 * MICROBATCH, flags, params)
+             for _ in range(ACCUM)]
+
+    def timed(kind):
+        state, step = built[kind]
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, None, draws=draws)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        loss = metrics["loss"].item()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        counts = kernel_counts()
+        check(math.isfinite(loss), f"step_gap: {kind} loss {loss}")
+        for kname, launched in counts.items():
+            want = 2 * ACCUM if kname == "shift_lerp_grouped" else 0
+            check(launched == want, f"step_gap: {kind} launched {kname} "
+                  f"{launched} times, want {want}")
+        return {"host_ms": host_ms, "wall_ms": wall_ms, "loss": loss}
+
+    first = {kind: timed(kind) for kind in kinds}
+    turns = {kind: [] for kind in kinds}
+    for _ in range(STEP_GAP_REPS):
+        for kind in kinds:
+            turns[kind].append(timed(kind))
+    profiled = {}
+    for kind in kinds:
+        state, step = built[kind]
+        _, profiled[kind] = profile_step(
+            torch, functools.partial(step, draws=draws), state, batch, None)
+    wall = {kind: float(np.mean([r["wall_ms"] for r in turns[kind]]))
+            for kind in kinds}
+    run = {"resnet": "50", **RECIPE_PROXY, "first_step": first,
+           "turns": turns, "wall_ms_mean": wall,
+           "peclr_over_simclr": wall["peclr"] / wall["simclr"],
+           "profiled": profiled,
+           "phase_seconds": time.perf_counter() - t_phase}
+    emit("step_gap", **run)
     return run
 
 
@@ -3196,8 +3348,9 @@ def main() -> int:
         ddp_run = phase_ddp(torch, dev, root, trainer_run)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    # ---- 12. the accuracy path --------------------------------------------------
+    # ---- 12. the accuracy path; 12a. the two kinds' steps ------------------------
     accuracy_run = phase_accuracy(torch, dev)
+    phase_step_gap(torch, dev)
 
     # ---- 13. kernels line --------------------------------------------------------
     def summary(name, source, replaces, launches, rows, timed_case, **extra):
@@ -3256,6 +3409,9 @@ def main() -> int:
                     "shift_lerp_grouped"],
                 launches_per_accuracy_proxy=accuracy_run["proxy_launches"][
                     "shift_lerp_grouped"],
+                launches_per_accuracy_rn152_run={
+                    kind: accuracy_run["rn152"][kind]["launches"][
+                        "shift_lerp_grouped"] for kind in ("peclr", "simclr")},
                 proxy={r["case"]: {key: r[key] for key in (
                     "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms", "path")}

@@ -121,10 +121,51 @@ def make_embed(model: torch.nn.Module):
     return embed
 
 
+def augmentation(view: int):
+    """(flags, params) of the proxy's augmentation: the recipe's crop,
+    rotation, resize and colour jitter, to `view`-pixel views."""
+    from peclr_tpu_torch.config.defaults import (
+        AugmentationFlags,
+        AugmentationParams,
+    )
+
+    return (AugmentationFlags(crop=True, rotate=True, resize=True,
+                              color_jitter=True),
+            AugmentationParams(resize_shape=(view, view)))
+
+
+def make_pretrain_step(kind: str, model: torch.nn.Module, steps: int,
+                       batch: int, view: int, accum: int = 1,
+                       optimizer: str = "adam", lr: float = 5e-5):
+    """(state, step) of one pretraining run of `kind` ("peclr" or "simclr")
+    on `model`: the recipe's flags at `view`, the optimizer's schedule over
+    `steps` updates of `accum` microbatches of `batch`, bf16 autocast on the
+    card.  The two kinds differ only in the inverse transforms in projection
+    space, which SimCLR does not apply."""
+    from peclr_tpu_torch.train.optimizer import build_optimizer
+    from peclr_tpu_torch.train.state import TrainState
+    from peclr_tpu_torch.train.step import make_peclr_train_step
+
+    flags, aug = augmentation(view)
+    # steps_per_epoch counts data iterations (microbatches); a run takes
+    # `steps` optimizer updates of `accum` microbatches each
+    opt, _ = build_optimizer(
+        model, base_lr=lr, batch_size=batch, accum=accum,
+        steps_per_epoch=steps * accum, epochs=1,
+        warmup_epochs=0.05 if optimizer == "LARS" else 0,
+        optimizer=optimizer,
+    )
+    augmentations = () if kind == "simclr" else ("crop", "rotate")
+    step = make_peclr_train_step(model, opt, flags, aug, accum=accum,
+                                 augmentations=augmentations,
+                                 with_stats=False, precision="bf16")
+    return TrainState(model, opt), step
+
+
 def pretrain(kind: str, imgs, joints, steps: int, batch: int, seed: int,
              view: int, resnet: str, accum: int = 1, optimizer: str = "adam",
              lr: float = 5e-5, probe_hook=None, probe_every: int = 0,
-             device="cuda"):
+             device="cuda", timing=None):
     """Pretrain one model; returns (embed, losses, model).
 
     With accum/optimizer this scales to the published recipe's shape
@@ -132,39 +173,22 @@ def pretrain(kind: str, imgs, joints, steps: int, batch: int, seed: int,
     with (step_index, embed) every `probe_every` steps, and at step 0, to
     record a learning curve.  The pool stays on the device; each step's
     indices come from default_rng(1000 * seed + i), the reference's stream;
-    the losses stay device tensors until the end."""
-    from peclr_tpu_torch.config.defaults import (
-        AugmentationFlags,
-        AugmentationParams,
-    )
+    the losses stay device tensors until the end.  `timing` (a dict, if
+    given) receives the host's seconds of the setup (the model's build and
+    initial weights, the pool's copy; the first run of a process also pays
+    its imports and the card's context), of the first step (in the first
+    run also the kernels' build and load and cuDNN's plans) and of the
+    steps after it to the losses' fetch, the probes left out of each."""
     from peclr_tpu_torch.data.pipeline import host_to_device
     from peclr_tpu_torch.device import resolve_device
     from peclr_tpu_torch.models import PeCLRModel
     from peclr_tpu_torch.scripts import run_steps
-    from peclr_tpu_torch.train.optimizer import build_optimizer
-    from peclr_tpu_torch.train.state import TrainState
-    from peclr_tpu_torch.train.step import make_peclr_train_step
 
+    t_enter = time.time()
     dev = resolve_device(device)
-    flags = AugmentationFlags(crop=True, rotate=True, resize=True,
-                              color_jitter=True)
-    aug = AugmentationParams(resize_shape=(view, view))
     model = init_as_reference(PeCLRModel(resnet), seed).to(dev)
-    # steps_per_epoch counts data iterations (microbatches); the loop below
-    # runs `steps` optimizer updates of `accum` microbatches each
-    opt, _ = build_optimizer(
-        model, base_lr=lr, batch_size=batch, accum=accum,
-        steps_per_epoch=steps * accum, epochs=1,
-        warmup_epochs=0.05 if optimizer == "LARS" else 0,
-        optimizer=optimizer,
-    )
-    state = TrainState(model, opt)
-    # the only difference between the two runs: SimCLR applies no inverse
-    # transforms in projection space
-    augmentations = () if kind == "simclr" else ("crop", "rotate")
-    step = make_peclr_train_step(model, opt, flags, aug, accum=accum,
-                                 augmentations=augmentations,
-                                 with_stats=False, precision="bf16")
+    state, step = make_pretrain_step(kind, model, steps, batch, view,
+                                     accum=accum, optimizer=optimizer, lr=lr)
     embed = make_embed(model)
     generator = torch.Generator(device=dev).manual_seed(seed)
     n = imgs.shape[0]
@@ -172,6 +196,8 @@ def pretrain(kind: str, imgs, joints, steps: int, batch: int, seed: int,
     imgs_d = host_to_device(imgs, dev)
     joints_d = host_to_device(joints, dev)
     losses = []
+    marks = []  # the first step's start and end
+    probe_s = [0.0]  # seconds in the probes after a step
 
     def batch_at(i):
         idx = host_to_device(
@@ -181,19 +207,31 @@ def pretrain(kind: str, imgs, joints, steps: int, batch: int, seed: int,
 
     def after(done, _state):
         if probe_hook and probe_every and done % probe_every == 0:
+            t_probe = time.time()
             probe_hook(done, embed)
+            probe_s[0] += time.time() - t_probe
 
     def counted(st, bd, gen):
+        if not marks:
+            marks.append(time.time())
         st, m = step(st, bd, gen)
         losses.append(m["loss"])  # a device scalar, fetched at the end
+        if len(marks) == 1:
+            marks.append(time.time())
         return st, m
 
     t0 = time.time()
     if probe_hook and probe_every:
         probe_hook(0, embed)  # the random-init baseline of the curve
+    probe0 = time.time() - t0
     state, _ = run_steps(counted, state, steps, batch_at, generator, after)
     losses = torch.stack(losses).tolist() if losses else []
-    seconds = time.time() - t0
+    t_end = time.time()
+    seconds = t_end - t0
+    if timing is not None and marks:
+        timing.update(setup_seconds=marks[0] - t_enter - probe0,
+                      first_step_seconds=marks[1] - marks[0],
+                      steps_seconds=t_end - marks[1] - probe_s[0])
     print(f"  {kind}: loss {losses[0]:.4f} -> {np.mean(losses[-10:]):.4f} "
           f"({seconds:.0f}s)")
     return embed, losses, model
@@ -259,6 +297,8 @@ def parse_args(argv=None):
 
 
 def main(argv=None):
+    """One record (and with --curve-out one curve) of PeCLR against SimCLR,
+    the two kinds one after the other in this process."""
     from peclr_tpu_torch.device import resolve_device
 
     args = parse_args(argv)
@@ -304,11 +344,13 @@ def main(argv=None):
             write_curves({**curves, kind: {"probe": curve}}, complete=False)
 
         t0 = time.time()
+        timing = {}
         embed, losses, _model = pretrain(
             kind, imgs, joints, args.steps, args.batch, args.seed,
             args.view, args.resnet, accum=args.accum,
             optimizer=args.optimizer, lr=args.lr,
             probe_hook=probe_hook, probe_every=args.probe_every, device=dev,
+            timing=timing,
         )
         seconds = time.time() - t0 - probe_seconds[0]  # the steps' own
         if curve and curve[-1]["step"] == args.steps:
@@ -324,7 +366,12 @@ def main(argv=None):
                          "final_loss": float(np.mean(losses[-10:])),
                          "pretrain_seconds": seconds,
                          "probe_seconds": probe_seconds[0],
-                         "steps_per_s": args.steps / seconds}
+                         **timing,
+                         # the steps after the first: the setup and the
+                         # first step pay the process's one-time costs in
+                         # the kind that runs first
+                         "steps_per_s":
+                             (args.steps - 1) / timing["steps_seconds"]}
         stride = max(len(losses) // 200, 1)
         curves[kind] = {
             "probe": curve,

@@ -73,6 +73,13 @@ _STD = np.asarray(IMAGENET_STD, np.float32)
 MB, ACCUM, CANVAS, VIEW = 4, 2, 64, 32
 OPT = dict(base_lr=1e-4, batch_size=MB, accum=ACCUM, steps_per_epoch=4,
            epochs=2, warmup_epochs=1)
+#: the accuracy recipe's LARS schedule (scripts/accuracy_proxy.py
+#: :make_pretrain_step: base lr 1e-5, warmup_epochs 0.05 of one epoch of
+#: steps * accum microbatches) for a run of 40 steps: 2 warmup steps, so
+#: RECIPE_STEPS steps cross into the cosine decay
+RECIPE_OPT = dict(base_lr=1e-5, batch_size=MB, accum=ACCUM,
+                  steps_per_epoch=40 * ACCUM, epochs=1, warmup_epochs=0.05)
+RECIPE_STEPS = 4
 
 
 def _record_grads():
@@ -144,7 +151,8 @@ def _as_torch_layout(name, value):
     return value
 
 
-def op_by_op_runs(jflags, flags, extra_draws=None, share_views=False):
+def op_by_op_runs(jflags, flags, extra_draws=None, share_views=False,
+                  opt=OPT, steps=2):
     """_run_both with the reference's step computing its views op by op.
 
     share_views: the port's step computes its views and checks them
@@ -169,7 +177,7 @@ def op_by_op_runs(jflags, flags, extra_draws=None, share_views=False):
 
         patch.setattr(step_module, "augment_pair", port_pair)
     try:
-        return _run_both(jflags, flags, extra_draws)
+        return _run_both(jflags, flags, extra_draws, opt, steps)
     finally:
         patch.undo()
 
@@ -179,13 +187,13 @@ def runs():
     return op_by_op_runs(jax_flags(), peclr_pretrain_flags())
 
 
-def _run_both(jflags, flags, extra_draws=None):
+def _run_both(jflags, flags, extra_draws=None, opt=OPT, steps=2):
     variables = seeded_peclr_variables("18", seed=0)
     batch = {k: v.numpy() for k, v in synthetic_pretrain_batch(
         MB * ACCUM, canvas=CANVAS, seed=0, device="cpu").items()}
 
     model = JaxPeCLR(resnet_size="18", dtype=jnp.float32)
-    tx, _ = jax_build_optimizer(variables["params"], optimizer="LARS", **OPT)
+    tx, _ = jax_build_optimizer(variables["params"], optimizer="LARS", **opt)
     tx = optax.chain(_record_grads(), tx)
     jax_state = JaxState.create(jax.tree_util.tree_map(jnp.asarray, variables),
                                 tx)
@@ -196,15 +204,15 @@ def _run_both(jflags, flags, extra_draws=None):
     port = PeCLRModel("18")
     port.load_state_dict(peclr_variables_to_state_dict(variables, "18"),
                          strict=True)
-    opt, _ = build_optimizer(port, **OPT)
-    state = TrainState(port, opt)
-    step = make_peclr_train_step(port, opt, flags,
+    optimizer, _ = build_optimizer(port, **opt)
+    state = TrainState(port, optimizer)
+    step = make_peclr_train_step(port, optimizer, flags,
                                  AugmentationParams(resize_shape=(VIEW, VIEW)),
                                  accum=ACCUM)
     torch_batch = {k: torch.from_numpy(v) for k, v in batch.items()}
 
     out = []
-    for s in range(2):
+    for s in range(steps):
         key = jax.random.PRNGKey(10 + s)
         jax_state, jax_metrics = jax_step(jax_state, batch, key)
         state, metrics = step(state, torch_batch, None,
@@ -312,3 +320,118 @@ def test_params_after_each_update(runs):
 
 def test_projection_stats_match(runs):
     check_projection_stats(runs)
+
+
+@pytest.fixture(scope="module")
+def recipe_runs():
+    return op_by_op_runs(jax_flags(), peclr_pretrain_flags(), opt=RECIPE_OPT,
+                         steps=RECIPE_STEPS)
+
+
+def test_recipe_schedule_crosses_its_warmup():
+    """Both schedules: 0 at the first update, the peak at the third (the
+    warmup's end), then the cosine, equal at every count the runs take."""
+    _, ref = jax_build_optimizer(
+        seeded_peclr_variables("18", seed=0)["params"], optimizer="LARS",
+        **RECIPE_OPT)
+    _, got = build_optimizer(PeCLRModel("18"), **RECIPE_OPT)
+    peak = 1e-5 * np.sqrt(MB * ACCUM)
+    lrs = [got(c) for c in range(RECIPE_STEPS)]
+    want = [float(ref(c)) for c in range(RECIPE_STEPS)]
+    np.testing.assert_allclose(lrs, want, rtol=1e-6)
+    assert lrs[0] == 0.0 and lrs[1] < lrs[2] and lrs[3] < lrs[2]
+    np.testing.assert_allclose(lrs[2], peak, rtol=1e-6)
+
+
+@pytest.mark.parametrize("s", range(RECIPE_STEPS))
+def test_loss_matches_across_the_warmup(recipe_runs, s):
+    check_loss(recipe_runs, s)
+
+
+#: the steps whose gradients are held: from the fourth on, the parameters
+#: the two sides reach differ by ~1e-7 (the head's first bias apart, whose
+#: update is rounding noise), and this tiny RN18's gradients part by more
+#: than 1e-3 under a random 1e-7 change of every parameter
+#: (test_gradients_part_under_a_1e_7_change); its updates and losses stay
+#: held at every step
+GRAD_STEPS = 3
+
+
+@pytest.mark.parametrize("s", range(GRAD_STEPS))
+def test_grads_match_across_the_warmup(recipe_runs, s):
+    check_grads(recipe_runs, s)
+
+
+def test_gradients_part_under_a_1e_7_change():
+    """Why GRAD_STEPS stops short of RECIPE_STEPS: the port alone, twice
+    from one state and one draw stream under RECIPE_OPT, the second run with
+    every parameter moved by a random 1e-7 before its last step; that step's
+    gradients part by more than check_grads' 1e-3 in some parameter."""
+    variables = seeded_peclr_variables("18", seed=0)
+    batch = synthetic_pretrain_batch(MB * ACCUM, canvas=CANVAS, seed=0,
+                                     device="cpu")
+    grads = []
+    for nudge in (0.0, 1e-7):
+        port = PeCLRModel("18")
+        port.load_state_dict(peclr_variables_to_state_dict(variables, "18"))
+        optimizer, _ = build_optimizer(port, **RECIPE_OPT)
+        state = TrainState(port, optimizer)
+        step = make_peclr_train_step(
+            port, optimizer, peclr_pretrain_flags(),
+            AugmentationParams(resize_shape=(VIEW, VIEW)), accum=ACCUM)
+        generator = torch.Generator().manual_seed(3)
+        noise = torch.Generator().manual_seed(1)
+        for s in range(RECIPE_STEPS):
+            if s == RECIPE_STEPS - 1:
+                with torch.no_grad():
+                    for p in port.parameters():
+                        p.add_(torch.randn(p.shape, generator=noise) * nudge)
+            state, _ = step(state, batch, generator)
+        grads.append({n: p.grad.clone() for n, p in port.named_parameters()})
+    parted = max(float((grads[1][n] - g).norm() / g.norm())
+                 for n, g in grads[0].items()
+                 if n != "projection_head.0.bias")
+    assert parted > 1e-3, parted
+
+
+@pytest.mark.parametrize("s", range(RECIPE_STEPS))
+def test_batch_stats_match_across_the_warmup(recipe_runs, s):
+    check_batch_stats(recipe_runs, s)
+
+
+@pytest.mark.parametrize("s", range(1, RECIPE_STEPS))
+def test_updates_match_across_the_warmup(recipe_runs, s):
+    """Each LARS update (the warmup's second, the peak, the cosine's
+    first): each parameter's update within 1e-2 of its norm, but the
+    head's first bias, whose update is rounding noise (test_grads_match).
+    No element is held alone: an element's update is at most about one lr,
+    so a bound of that size would pass any update."""
+    _, out, _ = recipe_runs
+    got_before, ref_before = out[s - 1]["params"]
+    params, ref = out[s]["params"]
+    for name, r in ref.items():
+        if name == "projection_head.0.bias":
+            continue
+        got_up = params[name] - got_before[name]
+        ref_up = (_as_torch_layout(name, r)
+                  - _as_torch_layout(name, ref_before[name]))
+        assert (np.linalg.norm(got_up - ref_up)
+                <= 1e-2 * np.linalg.norm(ref_up)), (name, s)
+
+
+def test_params_after_the_warmup(recipe_runs):
+    """After the last update each parameter's total LARS update agrees with
+    the reference's to 1e-2 of its norm, the head's first bias apart
+    (test_updates_match_across_the_warmup)."""
+    variables, out, state = recipe_runs
+    initial = peclr_variables_to_state_dict(variables, "18")
+    params, ref = out[-1]["params"]
+    for name, r in ref.items():
+        if name == "projection_head.0.bias":
+            continue
+        got, r = params[name], _as_torch_layout(name, r)
+        start = initial[name].numpy()
+        assert (np.linalg.norm((got - start) - (r - start))
+                <= 1e-2 * np.linalg.norm(r - start)), name
+    assert state.step == RECIPE_STEPS
+    assert state.optimizer.count == RECIPE_STEPS
