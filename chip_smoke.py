@@ -154,12 +154,19 @@ one JSON line that carries the card's name and power limit:
               LARS) cut to 3 steps of each kind: finite losses, kernel 1
               launched 2 a microbatch, kernels 2-4 never, each step's ms
               and the PeCLR/SimCLR ratio after the first step
- 12a. step_gap  the proxy's RN50 recipe step of each kind (PeCLR, SimCLR)
-              on one model with the same batch and draws: the first step
-              of each, then 3 of each in turns (host and wall ms, 32
-              launches of kernel 1 a step, none of the others), then one
-              profiled step of each: launches, aten calls, device busy ms
-              and share
+ 12a. bench_scripts  the measurement scripts of peclr_tpu_torch/scripts,
+              each main at a cut size, its artifact into a temporary
+              directory: bench_serving at batches 1 and 8 (5 requests),
+              bench_pred_pipeline at depths 1 and 2 over 3 batches of 128,
+              bench_host_pipeline for 2 recipe steps a leg over the
+              trainer's fixture tiled to 2,048 frames, profile_step of the
+              recipe step and of two-pass inference (1 step, traced): the
+              artifacts' keys, their accounting (trace_buckets' buckets sum
+              to the kernel time, busy no more than it and within 1% of it
+              on one stream, no more than the span; the device bound batch
+              / busy; bound_by the slowest leg), kernel 1 launched 4 a
+              two-pass batch and 32 a recipe step, none of kernels 2-4, and
+              no host wait inside a timed window but the one that ends it
  13. kernels  one line listing every ported kernel
 Then the card's nvidia-smi line, and last the contract line
 {"ok": true, "device": {...}}.  No weights are read (they are made from a
@@ -1088,49 +1095,35 @@ def microbatch_breakdown(torch, model, opt, batch, draws, route):
 
 
 def trace_summary(torch, prof, wall_ms: float) -> dict:
-    """What a torch.profiler capture of `wall_ms` shows: the union of the
-    card's kernel intervals against the span (the device's busy share), the
-    kernels that take the most device time, the host's ops that take the
-    most self time, and the collectives (c10d's all-reduce calls, their
-    host ms; NCCL's kernels and device ms)."""
-    # the card's kernels and copies; record_function ranges (DDP's forward)
-    # are on the device's timeline too
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)]
-    if not kernels:
+    """What a torch.profiler capture of `wall_ms` shows: the card's busy
+    time (the union of its intervals, scripts/trace_buckets.py) against
+    the span (the device's busy share), the kernels that take the most
+    device time, the host's ops that take the most self time, and the
+    collectives (c10d's all-reduce calls, their host ms; NCCL's kernels and
+    device ms)."""
+    from peclr_tpu_torch.scripts import trace_buckets
+
+    device, host = trace_buckets.spans_of_profile(prof)
+    if not device:
         return {"device_time": "not measured (no CUDA events)"}
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy, cur_start, cur_end = 0.0, spans[0][0], spans[0][1]
-    for start, end in spans[1:]:
-        if start > cur_end:
-            busy += cur_end - cur_start
-            cur_start, cur_end = start, end
-        else:
-            cur_end = max(cur_end, end)
-    busy += cur_end - cur_start
-    by_name = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + (
-            e.time_range.end - e.time_range.start)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    nccl = [e for e in kernels if "nccl" in e.name.lower()]
+    summary = trace_buckets.summarize(device, host, top_n=10)
+    nccl = [s for s in device if trace_buckets.bucket(s.name, s.op) == "nccl"]
     ops = prof.key_averages()
-    host = sorted(ops, key=lambda a: -a.self_cpu_time_total)[:12]
+    top_host = sorted(ops, key=lambda a: -a.self_cpu_time_total)[:12]
     calls = [a for a in ops if "allreduce" in a.key.lower()]
     return {
-        "profiled_wall_ms": wall_ms, "device_busy_ms": busy / 1e3,
-        "device_busy_share": busy / 1e3 / wall_ms,
-        "kernel_launches": len(kernels),
+        "profiled_wall_ms": wall_ms, "device_busy_ms": summary["busy_ms"],
+        "device_busy_share": summary["busy_ms"] / wall_ms,
+        "kernel_launches": len(device),
         "aten_calls": sum(a.count for a in ops if a.key.startswith("aten::")),
-        "top_kernels_ms": {name[:90]: us / 1e3 for name, us in top},
+        "top_kernels_ms": {k["name"][:90]: k["ms"]
+                           for k in summary["top_kernels"]},
         "top_host_self_ms": {a.key[:70]: [a.count, a.self_cpu_time_total / 1e3]
-                             for a in host},
+                             for a in top_host},
         "allreduce_calls": {a.key[:70]: [a.count, a.cpu_time_total / 1e3]
                             for a in calls},
         "nccl_kernels": len(nccl),
-        "nccl_device_ms": sum(e.time_range.end - e.time_range.start
-                              for e in nccl) / 1e3,
+        "nccl_device_ms": summary["buckets_ms"].get("nccl", 0.0),
     }
 
 
@@ -2889,8 +2882,27 @@ ACCURACY_PROXY_STEPS, ACCURACY_PROXY_IMAGES = 8, 512
 RECIPE_PROXY = dict(batch=MICROBATCH, accum=ACCUM, optimizer="LARS",
                     lr=1e-5, view=128)
 RN152_STEPS, RECIPE_IMAGES = 3, 4096
-#: the step-gap phase: timed steps of each kind, in turns, after one each
-STEP_GAP_REPS = 3
+#: the bench_scripts phase: each measurement script's argv, cut in size
+BENCH_ARGV = {
+    "bench_serving": ["--batches", "1,8", "--iters", "5"],
+    "bench_pred_pipeline": ["--depths", "1,2", "--num-batches", "3",
+                            "--repeats", "1"],
+    "bench_host_pipeline": ["--root", TRAINER_FIXTURE, "--steps", "2"],
+    "profile_step_pretrain": ["--phase", "pretrain", "--iters", "1",
+                              "--trace"],
+    "profile_step_pred": ["--phase", "pred", "--iters", "1", "--trace"],
+}
+#: kernel 1's launches in each BENCH_ARGV run: 4 a two-pass batch, 2 x
+#: ACCUM = 32 a recipe step (the grouped route); serving runs none.  Pred
+#: pipeline: a warm-up and a profiled batch, then 3 batches at each of 2
+#: depths (8 batches); host pipeline: 2 warm-up and 2 timed steps in the
+#: device-only leg, 1 warm-up and 2 timed in the sustained one (7 steps);
+#: profile_step: 2 warm-up, 1 timed and 1 profiled step (4 steps, or 4
+#: batches)
+BENCH_LAUNCHES = {"bench_serving": 0, "bench_pred_pipeline": 4 * 8,
+                  "bench_host_pipeline": 2 * ACCUM * 7,
+                  "profile_step_pretrain": 2 * ACCUM * 4,
+                  "profile_step_pred": 4 * 4}
 
 
 def phase_accuracy(torch, dev):
@@ -3027,74 +3039,126 @@ def accuracy_rn152(torch, dev) -> dict:
     return out
 
 
-def phase_step_gap(torch, dev):
-    """Why the accuracy runs recorded a PeCLR step at up to 2.2x a SimCLR
-    one: the proxy's RN50 recipe step (RECIPE_PROXY, bf16, grouped route)
-    of each kind on one model, the same batch and draws.  The first step of
-    each kind (whichever runs first pays what is left of the process's
-    one-time costs), then STEP_GAP_REPS steps of each in turns, then one
-    profiled step of each (trace_summary: launches, device busy ms and
-    share, the host's aten calls; earlier phases have warmed the profiler
-    up).  Each step's host ms (until its call returns) and wall ms (until
-    the card is done); kernel 1 launched 2 a microbatch, the others
-    never."""
-    from peclr_tpu_torch.data.pipeline import host_to_device
-    from peclr_tpu_torch.models import PeCLRModel
-    from peclr_tpu_torch.ops import augment
-    from peclr_tpu_torch.scripts import accuracy_proxy, init_as_reference
+def trace_accounting(what: str, summary: dict) -> None:
+    """trace_buckets' accounting on a capture of the card: the buckets sum
+    to the kernel time; 90% of it or more was linked to the host op that
+    launched it (the buckets go by those ops); busy (the union) is no more
+    than it, and within 1% of it where one stream ran; busy no more than
+    the span."""
+    kernel, busy = summary["kernel_ms"], summary["busy_ms"]
+    check(summary["op_linked_ms"] >= 0.9 * kernel, f"{what}: only "
+          f"{summary['op_linked_ms']} of {kernel} kernel ms linked to an op")
+    check(math.isclose(sum(summary["buckets_ms"].values()), kernel,
+                       rel_tol=1e-9), f"{what}: buckets do not sum to the "
+          "kernel time")
+    check(busy <= kernel * (1 + 1e-9), f"{what}: busy {busy} > kernels "
+          f"{kernel}")
+    if summary["streams"] == 1:
+        check(busy >= 0.99 * kernel, f"{what}: busy {busy} not within 1% "
+              f"of the kernel time {kernel} on one stream")
+    check(busy <= summary["wall_ms"], f"{what}: busy {busy} > span "
+          f"{summary['wall_ms']}")
+
+
+def phase_bench_scripts(torch, dev):
+    """Each measurement script's main (peclr_tpu_torch/scripts) at
+    BENCH_ARGV's cut size on the card, its artifact into a temporary
+    directory: the artifact's keys and accounting, kernel 1 launched as
+    BENCH_LAUNCHES says, kernels 2-4 never, and no host wait (torch's sync
+    debug mode) inside a window the scripts time with
+    scripts.chained_seconds but the wait that ends it.  One line a
+    script."""
+    from peclr_tpu_torch import scripts as common
+    from peclr_tpu_torch.scripts import (
+        bench_host_pipeline,
+        bench_pred_pipeline,
+        bench_serving,
+        profile_step,
+    )
 
     t_phase = time.perf_counter()
-    kinds = ("peclr", "simclr")
-    view = RECIPE_PROXY["view"]
-    model = init_as_reference(PeCLRModel("50"), 5).to(dev)
-    built = {kind: accuracy_proxy.make_pretrain_step(
-        kind, model, 640, **RECIPE_PROXY) for kind in kinds}
-    imgs, joints = accuracy_proxy.render_batch(np.random.default_rng(5),
-                                               MICROBATCH * ACCUM)
-    batch = {"image": host_to_device(imgs, dev),
-             "joints25d": host_to_device(joints, dev)}
-    flags, params = accuracy_proxy.augmentation(view)
-    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
-    draws = [augment.draw(gen, 2 * MICROBATCH, flags, params)
-             for _ in range(ACCUM)]
+    tmp = tempfile.mkdtemp(prefix="peclr_bench_")
+    window_waits = []
 
-    def timed(kind):
-        state, step = built[kind]
-        torch.cuda.synchronize()
-        reset_counts()
+    def watched(run, device):
+        torch.cuda.synchronize(device)
         t0 = time.perf_counter()
-        state, metrics = step(state, batch, None, draws=draws)
-        host_ms = (time.perf_counter() - t0) * 1e3
-        loss = metrics["loss"].item()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-        counts = kernel_counts()
-        check(math.isfinite(loss), f"step_gap: {kind} loss {loss}")
-        for kname, launched in counts.items():
-            want = 2 * ACCUM if kname == "shift_lerp_grouped" else 0
-            check(launched == want, f"step_gap: {kind} launched {kname} "
-                  f"{launched} times, want {want}")
-        return {"host_ms": host_ms, "wall_ms": wall_ms, "loss": loss}
+        window_waits.extend(host_waits(torch, run))
+        torch.cuda.synchronize(device)
+        return time.perf_counter() - t0
 
-    first = {kind: timed(kind) for kind in kinds}
-    turns = {kind: [] for kind in kinds}
-    for _ in range(STEP_GAP_REPS):
-        for kind in kinds:
-            turns[kind].append(timed(kind))
-    profiled = {}
-    for kind in kinds:
-        state, step = built[kind]
-        _, profiled[kind] = profile_step(
-            torch, functools.partial(step, draws=draws), state, batch, None)
-    wall = {kind: float(np.mean([r["wall_ms"] for r in turns[kind]]))
-            for kind in kinds}
-    run = {"resnet": "50", **RECIPE_PROXY, "first_step": first,
-           "turns": turns, "wall_ms_mean": wall,
-           "peclr_over_simclr": wall["peclr"] / wall["simclr"],
-           "profiled": profiled,
-           "phase_seconds": time.perf_counter() - t_phase}
-    emit("step_gap", **run)
-    return run
+    real = common.chained_seconds
+    common.chained_seconds = watched
+    runs = {}
+    try:
+        for name, module in (
+                ("bench_serving", bench_serving),
+                ("bench_pred_pipeline", bench_pred_pipeline),
+                ("bench_host_pipeline", bench_host_pipeline),
+                ("profile_step_pretrain", profile_step),
+                ("profile_step_pred", profile_step)):
+            window_waits.clear()
+            reset_counts()
+            t0 = time.perf_counter()
+            record = module.main(BENCH_ARGV[name] + [
+                "--device", str(dev),
+                "--out", os.path.join(tmp, f"{name}.json")])
+            torch.cuda.synchronize()
+            counts = kernel_counts()
+            check(counts["shift_lerp_grouped"] == BENCH_LAUNCHES[name],
+                  f"{name}: kernel 1 launched {counts['shift_lerp_grouped']} "
+                  f"times, want {BENCH_LAUNCHES[name]}")
+            others = {k: v for k, v in counts.items()
+                      if k != "shift_lerp_grouped" and v}
+            check(not others, f"{name}: other kernels ran {others}")
+            check(not window_waits, f"{name}: host waits inside a timed "
+                  f"window {window_waits}")
+            runs[name] = {"seconds": time.perf_counter() - t0,
+                          "launches": counts, "record": record}
+            torch.cuda.empty_cache()
+    finally:
+        common.chained_seconds = real
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    serving = runs["bench_serving"]["record"]
+    check([r["batch"] for r in serving["rows"]] == [1, 8],
+          "bench_serving: the batches")
+    for row in serving["rows"]:
+        check(set(row) == {"batch", "sync_ms_p50", "sync_ms_p99",
+                           "chained_ms", "chained_img_per_s"}
+              and row["sync_ms_p99"] >= row["sync_ms_p50"] > 0
+              and row["chained_ms"] > 0, f"bench_serving: row {row}")
+    pred = runs["bench_pred_pipeline"]["record"]
+    check(set(pred["depths"]) == {"1", "2"}, "bench_pred_pipeline: depths")
+    check(math.isclose(pred["device_bound_img_per_sec"],
+                       pred["batch"] / (pred["device_busy_ms_per_batch"]
+                                        / 1e3), rel_tol=1e-9),
+          "bench_pred_pipeline: the device bound is not batch / busy")
+    trace_accounting("bench_pred_pipeline", pred["profile"])
+    host = runs["bench_host_pipeline"]["record"]
+    rates = {"host": host["host_only_img_s"],
+             "device": host["device_only_img_s"],
+             "transfer": host["transfer_img_s"]}
+    check(host["bound_by"] == min(rates, key=rates.get),
+          f"bench_host_pipeline: bound_by {host['bound_by']} of {rates}")
+    for name in ("profile_step_pretrain", "profile_step_pred"):
+        for variant, v in runs[name]["record"]["variants"].items():
+            trace_accounting(f"{name} {variant}", v["trace"])
+    out = {}
+    for name, run in runs.items():
+        record = run.pop("record")
+        if name.startswith("profile_step"):
+            record = {variant: {key: v[key] for key in (
+                "ms_per_step", "img_per_s")} | {key: v["trace"][key] for key in (
+                    "kernel_ms", "op_linked_ms", "busy_ms", "busy_share",
+                    "wall_ms", "streams", "buckets_ms")}
+                for variant, v in record["variants"].items()}
+        elif name == "bench_pred_pipeline":
+            record = {k: v for k, v in record.items() if k != "profile"}
+        emit(name, argv=BENCH_ARGV[name], **run, artifact=record)
+        out[name] = run
+    emit("bench_scripts", seconds=time.perf_counter() - t_phase)
+    return out
 
 
 def main() -> int:
@@ -3348,9 +3412,9 @@ def main() -> int:
         ddp_run = phase_ddp(torch, dev, root, trainer_run)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    # ---- 12. the accuracy path; 12a. the two kinds' steps ------------------------
+    # ---- 12. the accuracy path; 12a. the measurement scripts ---------------------
     accuracy_run = phase_accuracy(torch, dev)
-    phase_step_gap(torch, dev)
+    phase_bench_scripts(torch, dev)
 
     # ---- 13. kernels line --------------------------------------------------------
     def summary(name, source, replaces, launches, rows, timed_case, **extra):

@@ -34,7 +34,7 @@ import torch
 
 from peclr_tpu_torch.data import native_loader
 from peclr_tpu_torch.data.sampler import BalancedSampler, EpochSampler
-from peclr_tpu_torch.device import DeviceLike
+from peclr_tpu_torch.device import DeviceLike, resolve_device
 from peclr_tpu_torch.parallel.mesh import Mesh, local_rows
 from peclr_tpu_torch.parallel.multihost import global_batch_from_host_local
 
@@ -309,7 +309,10 @@ def host_to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     """A host array as a tensor on `device`.  To the card through pinned
     memory with non_blocking=True: the copy queues behind the work in
     flight instead of making the host wait for it (a copy from pageable
-    memory does)."""
+    memory does).  A tensor goes by Tensor.to (as it is where it lies on
+    `device` already, `cuda` or `cuda:0` alike)."""
+    if isinstance(arr, torch.Tensor):
+        return arr.to(device, non_blocking=True)
     t = torch.from_numpy(np.ascontiguousarray(arr))
     if device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
@@ -352,12 +355,13 @@ def cuda_copier(device: DeviceLike, slots: int = 2) -> Callable:
     return copy
 
 
-def device_prefetch(batch_iter: Iterable, device: DeviceLike = "cpu",
+def device_prefetch(batch_iter: Iterable, device: DeviceLike = None,
                     buffer_size: int = 2, copier: Optional[Callable] = None,
                     mesh: Optional[Mesh] = None
                     ) -> Iterator[Dict[str, torch.Tensor]]:
-    """Host batches as tensors on `device`, made `buffer_size` ahead by a
-    producer thread.
+    """Host batches as tensors on `device` (the card when None, through
+    device.py:resolve_device, which raises without one), made
+    `buffer_size` ahead by a producer thread.
 
     On a CUDA device each batch is staged in pinned memory and copied on a
     side stream by `copier` (a cuda_copier for `device`; a new one when
@@ -371,7 +375,7 @@ def device_prefetch(batch_iter: Iterable, device: DeviceLike = "cpu",
     rank's rows) goes through global_batch_from_host_local."""
     if mesh is not None:
         device = mesh.device
-    device = torch.device(device)
+    device = resolve_device(device)
     if device.type != "cuda":
         if mesh is not None:
             def put(b):

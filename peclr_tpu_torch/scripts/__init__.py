@@ -1,20 +1,30 @@
-"""The accuracy harnesses of the port (counterparts of the reference
-repository's scripts/accuracy_proxy.py and scripts/downstream_chain.py):
+"""The harnesses of the port, counterparts of the reference repository's
+scripts/ of the same names:
 
     python -m peclr_tpu_torch.scripts.accuracy_proxy [...]
     python -m peclr_tpu_torch.scripts.downstream_chain [...]
+    python -m peclr_tpu_torch.scripts.profile_step [...]
+    python -m peclr_tpu_torch.scripts.bench_serving [...]
+    python -m peclr_tpu_torch.scripts.bench_decode [...]
+    python -m peclr_tpu_torch.scripts.bench_host_pipeline [...]
+    python -m peclr_tpu_torch.scripts.bench_pred_pipeline [...]
+    python -m peclr_tpu_torch.scripts.trace_buckets TRACE.json [top_n]
 
-Both run on the card unless given `--device cpu` and write their artifacts
-under tests/fixtures/torch_accuracy/.  This module holds what they share:
-the reference's initial weights (their distribution: the flax defaults),
-the card's name for the records, and the step loop.
+Each runs on the card unless given `--device cpu`.  The accuracy
+harnesses write their artifacts under tests/fixtures/torch_accuracy/, the
+measurement scripts under tests/fixtures/torch_bench/.  This module holds
+what they share: the reference's initial weights (their distribution: the
+flax defaults), the card's name for the records, the step loop, and the
+timed window that ends in the one wait on the card.
 """
 
 from __future__ import annotations
 
+import json
 import math
 import os
 import subprocess
+import time
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -23,6 +33,7 @@ from torch import nn
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 ARTIFACT_DIR = os.path.join(REPO_ROOT, "tests", "fixtures", "torch_accuracy")
+BENCH_DIR = os.path.join(REPO_ROOT, "tests", "fixtures", "torch_bench")
 
 #: flax's truncated normal: a unit normal cut at +-2 has this standard
 #: deviation, so variance_scaling divides it out
@@ -91,3 +102,34 @@ def run_steps(step: Callable, state, steps: int,
         if after is not None:
             after(i + 1, state)
     return state, metrics
+
+
+def sync(device: torch.device) -> None:
+    """Wait for the work queued on `device` (nothing to wait for on the
+    CPU, which runs each op when it is called)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def chained_seconds(run: Callable[[], object], device: torch.device) -> float:
+    """Seconds from the call of run() until the card has done the work it
+    queued, the queue empty at the start: one wait, at the end.  run() must
+    not wait on the card itself (the card's harness watches this window
+    for waits)."""
+    sync(device)
+    t0 = time.perf_counter()
+    run()
+    sync(device)
+    return time.perf_counter() - t0
+
+
+def cpu_cores() -> int:
+    """The cores this process may run on."""
+    return len(os.sched_getaffinity(0))
+
+
+def write_artifact(path: str, record: dict) -> None:
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(record, f, indent=1)
+    print(f"wrote {path}")

@@ -19,12 +19,13 @@ from peclr_tpu_torch.train.state import TrainState
 
 
 def build_pretrain_state(resnet: str = "50", batch: int = 128, accum: int = 16,
-                         seed: int = 0, device: DeviceLike = None
+                         seed: int = 0, device: DeviceLike = None,
+                         optimizer: str = "LARS"
                          ) -> Tuple[PeCLRModel, TrainState, PretrainOptimizer]:
     """(model, state, optimizer) of the PeCLR pretrain recipe, with weights
     made from `seed` in the reference's layout (seeded_peclr_variables) and
-    the reference's LARS schedule (1000 steps an epoch, 100 epochs, 10 of
-    warmup)."""
+    the reference's schedule (1000 steps an epoch, 100 epochs, 10 of
+    warmup) for `optimizer` (LARS, or adam as the reference's ablation)."""
     dev = resolve_device(device)
     model = PeCLRModel(resnet)
     model.load_state_dict(peclr_variables_to_state_dict(
@@ -32,7 +33,7 @@ def build_pretrain_state(resnet: str = "50", batch: int = 128, accum: int = 16,
     model.to(dev)
     opt, _ = build_optimizer(model, base_lr=1e-4, batch_size=batch,
                              accum=accum, steps_per_epoch=1000, epochs=100,
-                             warmup_epochs=10)
+                             warmup_epochs=10, optimizer=optimizer)
     return model, TrainState(model, opt), opt
 
 

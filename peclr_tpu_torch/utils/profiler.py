@@ -2,7 +2,8 @@
 peclr_tpu/utils/profiler.py).
 
 * `trace(logdir)`: a torch.profiler capture of the CPU and, where there is
-  one, the card, written as a Chrome trace to `logdir` (nothing when None).
+  one, the card, yielded and written as a Chrome trace to `logdir` ("" for
+  none; no capture at all when None).
 * `Throughput`: images/s and an EMA of the step time, first steps skipped.
 """
 
@@ -16,9 +17,10 @@ from typing import Optional
 
 @contextlib.contextmanager
 def trace(logdir: Optional[str]):
-    """Capture a torch.profiler trace into `logdir`/trace_<time>.json."""
+    """Capture a torch.profiler trace, yield its profile, and write it to
+    `logdir`/trace_<time>.json where `logdir` is not ""."""
     if logdir is None:
-        yield
+        yield None
         return
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -26,11 +28,12 @@ def trace(logdir: Optional[str]):
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
-    os.makedirs(logdir, exist_ok=True)
     with profile(activities=activities) as prof:
-        yield
-    prof.export_chrome_trace(
-        os.path.join(logdir, f"trace_{time.strftime('%Y%m%d_%H%M%S')}.json"))
+        yield prof
+    if logdir:
+        os.makedirs(logdir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(
+            logdir, f"trace_{time.strftime('%Y%m%d_%H%M%S')}.json"))
 
 
 class Throughput:

@@ -449,6 +449,29 @@ def test_prefetch_copier_reuses_its_pinned_buffers(card, monkeypatch):
     assert len(pinned) == 2  # two slots, pinned once
 
 
+def test_prefetch_defaults_to_the_card(card):
+    """device_prefetch with no device puts every batch on the card."""
+    from peclr_tpu_torch.data import pipeline
+
+    host = [{"image": np.full((2, 4, 4, 3), i, np.uint8)} for i in range(3)]
+    got = list(pipeline.device_prefetch(iter(host)))
+    assert len(got) == 3
+    for i, batch in enumerate(got):
+        assert batch["image"].is_cuda
+        assert int(batch["image"][0, 0, 0, 0]) == i
+
+
+def test_host_to_device_passes_a_card_tensor_to_an_unindexed_device(card):
+    """A tensor already on the card goes through host_to_device for the
+    device `cuda`, with no index, as for `cuda:0`: the same tensor, no
+    copy (pred_pipeline's batches on the card)."""
+    from peclr_tpu_torch.data import pipeline
+
+    x = torch.arange(6, device=card).reshape(2, 3)
+    for device in (torch.device("cuda"), card):
+        assert pipeline.host_to_device(x, device) is x
+
+
 def test_finetune_cli_one_epoch_on_the_card(card, tmp_path, monkeypatch):
     """One epoch of the fine-tune CLI at RN50 on the card (FreiHAND-layout
     data written to a temporary directory, 224² canvases to 64² crops, 2

@@ -149,6 +149,27 @@ def test_device_prefetch_cpu_is_from_numpy():
         assert batch["joints25d"].device.type == "cpu"
 
 
+def test_device_prefetch_defaults_to_the_card(monkeypatch):
+    """With no device it runs on the card (device.py:resolve_device), as
+    the reference puts batches on its default device; without a card it
+    raises rather than fall back to the CPU, and starts no producer."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    it = pipeline.device_prefetch(_batches(2))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        next(it)
+    assert not _prefetch_threads()
+
+
+def test_host_to_device_takes_a_tensor_as_it_is():
+    """A tensor goes by Tensor.to: on the CPU for the CPU, the same one;
+    a numpy array is copied into a new tensor."""
+    x = torch.arange(6).reshape(2, 3)
+    assert pipeline.host_to_device(x, torch.device("cpu")) is x
+    arr = np.arange(6, dtype=np.uint8).reshape(2, 3)
+    got = pipeline.host_to_device(arr, torch.device("cpu"))
+    assert torch.equal(got, torch.from_numpy(arr))
+
+
 def _prefetch_threads():
     return [t for t in threading.enumerate() if t.name == "peclr-host-prefetch"]
 

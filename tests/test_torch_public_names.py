@@ -3,7 +3,7 @@ reorders and MIDDLE_PIP, rotation_matrix_2d, error_in_conversion,
 pseudo_joint_bound, read_yaml, and constants.py's BASE_DIR and FreiHAND
 sizes), and a diff of every public name of the two packages: each
 top-level function, class and constant of a module of peclr_tpu, and of
-scripts/accuracy_proxy.py and scripts/downstream_chain.py, has a
+the reference's scripts that the port carries (SCRIPTS), has a
 counterpart in the port's module of the same path, or stands on the
 written list of deliberate differences below."""
 
@@ -28,6 +28,10 @@ from peclr_tpu_torch.geometry import affine, camera, joints, mano
 from peclr_tpu_torch.utils import io
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+#: the reference's scripts with a counterpart in peclr_tpu_torch/scripts/
+SCRIPTS = ("accuracy_proxy.py", "downstream_chain.py", "trace_buckets.py",
+           "profile_step.py", "bench_serving.py", "bench_decode.py",
+           "bench_host_pipeline.py", "bench_pred_pipeline.py")
 
 #: reference names the port does not have, each with what covers it: JAX-
 #: or TPU-only names, and names whose job the port does another way.  "*"
@@ -84,6 +88,12 @@ DELIBERATE = {
         "*": "the Pallas kernels; their counterparts are "
              "ops/shift_lerp.py, ops/shift_lerp_matmul.py and csrc/",
     },
+    "scripts/bench_pred_pipeline.py": {
+        "DEVICE_BUSY_MS_PER_BATCH128": "the TPU trace's busy time; the "
+                                       "port measures its own each run "
+                                       "(trace_buckets of one profiled "
+                                       "batch)",
+    },
 }
 
 
@@ -113,7 +123,7 @@ def _module_pairs():
             if f.endswith(".py"):
                 rel = os.path.relpath(os.path.join(root, f), REPO)
                 pairs.append((rel, "peclr_tpu_torch" + rel[len("peclr_tpu"):]))
-    for name in ("accuracy_proxy.py", "downstream_chain.py"):
+    for name in SCRIPTS:
         pairs.append((f"scripts/{name}", f"peclr_tpu_torch/scripts/{name}"))
     return sorted(pairs)
 
@@ -135,12 +145,12 @@ def test_every_public_name_has_a_counterpart():
 def test_the_list_names_only_what_is_missing():
     """A name on the list that the port has, or the reference no longer
     has, is stale."""
+    port_of = dict(_module_pairs())
     for ref_path, listed in DELIBERATE.items():
         if "*" in listed:
             continue
         want = _public_names(os.path.join(REPO, ref_path))
-        port_path = "peclr_tpu_torch" + ref_path[len("peclr_tpu"):]
-        have = _public_names(os.path.join(REPO, port_path))
+        have = _public_names(os.path.join(REPO, port_of[ref_path]))
         for name in listed:
             assert name in want and name not in have, (ref_path, name)
 
