@@ -8,8 +8,18 @@ result when the package is not beside it or there is no card.  Every phase print
 one JSON line that carries the card's name and power limit:
 
   1. device   nvidia-smi's name and power limit, torch and CUDA versions
-  2. build    nvcc builds csrc/*.cu for sm_90a (one process per source, all
-              started together)
+  2. build    nvcc builds csrc/*.cu for sm_90a and the host's C++ compiler
+              csrc/jpeg_decode.cc (one process per source, all started
+              together)
+ 2a. decode   the port's own JPEG decode pool (no JPEG library linked)
+              against cv2 and PIL, byte for byte: the trainer's 32 fixture
+              JPEGs and an encoder matrix written here by cv2 (5 sizes x 4
+              qualities x 4:2:0/4:2:2/4:4:4 x restart 0 and 3, optimized
+              tables, grey), cv2 alone on two truncated files; the kinds it
+              refuses (progressive, 4:1:1, 4:4:0) give None and decode_image
+              gives cv2's bytes; whole batches at 1, 4 and 8 threads; the
+              pool's img/s at 1, 4 and 8 threads and per core beside the
+              threaded cv2 path's (scripts/bench_decode.py)
   3. kernel   each kernel against its plain PyTorch version: the grouped
               shift at the leaderboard shapes (B = 120) and at the pretrain
               recipe's and the fine-tune's (its two calls captured from one
@@ -72,7 +82,8 @@ one JSON line that carries the card's name and power limit:
               launches), after one warm-up step, against the same step on
               the grouped route in f32 with the same draws: loss within
               1e-3 relative, ms a step, peak memory
-  8. trainer  first the host's JPEG codecs (cv2, PIL, the native loader,
+  8. trainer  first the host's JPEG codecs (the port's pool, which must be
+              the decoder and link no libjpeg, cv2, PIL, the host's
               libjpeg), then the pretraining CLI (peclr_tpu_torch.cli.train)
               at the recipe (RN50, 128 x 16, LARS, bf16, 224 -> 128) for two
               epochs of one step over the committed FreiHAND-layout fixture
@@ -80,11 +91,12 @@ one JSON line that carries the card's name and power limit:
               epoch 0 that replays epoch 1; per epoch the losses, img/s, ms,
               the wait on the prefetcher, peak memory and kernel launches
               (kernel 1: 2 x 16 a step + 2 a validation batch, the others
-              none); the decode path of each batch; top-k checkpoints, their
+              none); the decode path of each batch, every one the port's
+              pool, and the epoch's wait on decode; top-k checkpoints, their
               bytes and save/restore ms; the replay's state as its fit
               starts equal to the bit to epoch 0's checkpoint (model,
               optimizer moments and count, step), its epoch-1 loss within
-              1e-2.  A host with no JPEG decoder fails the phase
+              1e-2
   9. finetune the fine-tune step of RN25DPose (RN18, 64² crops, batch 8,
               f32) on the card against the CPU from the same weights and
               draws: loss and every BatchNorm running statistic (the z-root
@@ -1291,12 +1303,163 @@ def phase_pretrain_vs_cpu(torch, dev):
 
 
 # --------------------------------------------------------------------------
+# phase 2a: the port's JPEG decode pool on the card's host
+
+#: the encoder matrix the decode phase writes with cv2: sizes, qualities,
+#: samplings and restart intervals, optimized tables, grey
+DECODE_SIZES = ((224, 224), (1, 1), (17, 33), (97, 223), (480, 640))
+DECODE_QUALITIES = (10, 50, 92, 100)
+DECODE_SAMPLINGS = ("420", "422", "444")
+#: the kinds the pool refuses (libjpeg decodes them; decode_image goes on
+#: to cv2 for them)
+DECODE_REFUSED = ("progressive", "411", "440")
+
+
+def decode_cases(cv2, root: str) -> list:
+    """(name, path, kind) of every file the decode phase checks: the
+    trainer's 32 fixture JPEGs, the encoder matrix (blurred noise from a
+    seed, written here by cv2), two truncated files, and the refused
+    kinds."""
+    sampling = {name: getattr(cv2, f"IMWRITE_JPEG_SAMPLING_FACTOR_{name}")
+                for name in DECODE_SAMPLINGS + ("411", "440")}
+    rgb_dir = os.path.join(TRAINER_FIXTURE, "training", "rgb")
+    cases = [(f"fixture/{n}", os.path.join(rgb_dir, n), "full")
+             for n in sorted(os.listdir(rgb_dir))]
+
+    def write(name, shape, quality=92, samp="420", restart=0,
+              optimize=False, grey=False, progressive=False):
+        rng = np.random.default_rng(len(cases))
+        img = rng.normal(128.0, 60.0, shape + (3,)).astype(np.float32)
+        k = max(1, min(shape) // 8) | 1
+        img = cv2.GaussianBlur(img, (k, k), 0).reshape(shape + (3,))
+        img = np.clip(img + rng.normal(0.0, 12.0, img.shape), 0, 255)
+        img = img.astype(np.uint8)
+        path = os.path.join(root, f"{len(cases)}.jpg")
+        check(cv2.imwrite(path, img[..., 0] if grey else img, [
+            cv2.IMWRITE_JPEG_QUALITY, quality,
+            cv2.IMWRITE_JPEG_SAMPLING_FACTOR, sampling[samp],
+            cv2.IMWRITE_JPEG_RST_INTERVAL, restart,
+            cv2.IMWRITE_JPEG_OPTIMIZE, int(optimize),
+            cv2.IMWRITE_JPEG_PROGRESSIVE, int(progressive)]),
+            f"decode: cv2 could not write {name}")
+        return path
+
+    for shape in DECODE_SIZES:
+        tag = "x".join(map(str, shape))
+        for q in DECODE_QUALITIES:
+            for samp in DECODE_SAMPLINGS:
+                for restart in (0, 3):
+                    name = f"{tag}/q{q}/{samp}/rst{restart}"
+                    cases.append((name, write(name, shape, q, samp, restart),
+                                  "full"))
+            name = f"{tag}/q{q}/grey"
+            cases.append((name, write(name, shape, q, grey=True), "full"))
+        for samp in DECODE_SAMPLINGS:
+            name = f"{tag}/q92/{samp}/optimized"
+            cases.append((name, write(name, shape, optimize=True), "full"))
+    full = write("truncated", (97, 223), 50, restart=3)
+    with open(full, "rb") as f:
+        data = f.read()
+    for cut, at in (("half", len(data) // 2), ("two_short", len(data) - 2)):
+        path = os.path.join(root, f"cut_{cut}.jpg")
+        with open(path, "wb") as f:
+            f.write(data[:at])
+        cases.append((f"truncated/{cut}", path, "truncated"))
+    for kind in DECODE_REFUSED:
+        name = f"refused/{kind}"
+        if kind == "progressive":
+            path = write(name, (97, 223), progressive=True)
+        else:
+            path = write(name, (97, 223), samp=kind)
+        cases.append((name, path, "refused"))
+    return cases
+
+
+def phase_decode(torch, dev):
+    """The port's own JPEG decode pool (csrc/jpeg_decode.cc, built here by
+    the host's C++ compiler, no JPEG library linked) against cv2 and PIL,
+    byte for byte: every file of decode_cases decoded by the pool, cv2 and
+    PIL (cv2 alone on the truncated ones, which PIL refuses) with 0 bytes
+    differing; the refused kinds None from the pool and decode_image equal
+    to cv2; whole batches at 1, 4 and 8 threads equal to the files decoded
+    one by one; then bench_decode's rates (the pool at 1, 4 and 8 threads,
+    per core, beside the threaded cv2 path's)."""
+    import cv2
+    from PIL import Image
+
+    from peclr_tpu_torch import build
+    from peclr_tpu_torch.data import native_loader
+    from peclr_tpu_torch.data.pipeline import decode_image
+    from peclr_tpu_torch.scripts import bench_decode
+
+    t_phase = time.perf_counter()
+    check(native_loader.available(), "decode: the pool did not load")
+    root = tempfile.mkdtemp(prefix="peclr_decode_")
+    try:
+        cases = decode_cases(cv2, root)
+        differing = {"cv2": 0, "PIL": 0}
+        compared = {"cv2": 0, "PIL": 0}
+        for name, path, kind in cases:
+            got = native_loader.decode(path)
+            via_cv2 = cv2.imread(path, cv2.IMREAD_COLOR)[:, :, ::-1]
+            if kind == "refused":
+                check(got is None, f"decode: the pool decoded {name}")
+                check(np.array_equal(decode_image(path), via_cv2),
+                      f"decode: decode_image of {name} is not cv2's")
+                continue
+            check(got is not None, f"decode: the pool refused {name}")
+            refs = {"cv2": via_cv2}
+            if kind == "full":
+                with Image.open(path) as im:
+                    refs["PIL"] = np.asarray(im.convert("RGB"))
+            for lib, ref in refs.items():
+                check(got.shape == ref.shape,
+                      f"decode: {name} shape {got.shape} vs {lib} {ref.shape}")
+                differing[lib] += int((got != ref).sum())
+                compared[lib] += got.size
+        check(differing == {"cv2": 0, "PIL": 0},
+              f"decode: bytes differing from cv2 and PIL {differing}")
+        fixture = [path for name, path, _ in cases
+                   if name.startswith("fixture/")]
+        one_by_one = np.stack([native_loader.decode(p) for p in fixture])
+        for threads in (1, 4, 8):
+            batch = native_loader.decode_batch_to_canvas(fixture, 224, threads)
+            check(batch is not None and np.array_equal(batch, one_by_one),
+                  f"decode: the batch at {threads} threads differs")
+        rates = bench_decode.main(["--device", str(dev), "--out",
+                                   os.path.join(root, "decode.json")])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    record = {
+        "library": os.path.relpath(build.library_path("jpeg_decode")),
+        "files": {kind: sum(1 for c in cases if c[2] == kind)
+                  for kind in ("full", "truncated", "refused")},
+        "bytes_compared": compared, "bytes_differing": differing,
+        "tolerance": 0, "cv2": cv2.__version__,
+        "PIL": importlib.import_module("PIL").__version__,
+        "batch_threads_checked": [1, 4, 8],
+        "pool_img_s": rates["native_img_s"],
+        "pool_single_file_img_s": rates["native_single_img_s"],
+        "cv2_threaded_img_s": rates["cv2_threaded_img_s"],
+        "cv2_one_thread_img_s": rates["cv2_img_s"],
+        "pipeline_threaded_img_s": rates["threaded_img_s"],
+        "cpu_cores": rates["cpu_cores"],
+        "seconds": time.perf_counter() - t_phase,
+    }
+    emit("decode", **record)
+    return record
+
+
+# --------------------------------------------------------------------------
 # phase 8: the pretraining trainer through its CLI
 
 
 def host_codecs() -> dict:
-    """What this host can decode JPEG with, in the pipeline's order (the
-    native loader, cv2, PIL), and the libraries the native loader needs."""
+    """What this host can decode JPEG with, in the pipeline's order: the
+    port's own pool (csrc/jpeg_decode.cc, built here, no JPEG library
+    linked), then cv2 and PIL; and whether the host has a libjpeg at all
+    (the pool needs none)."""
+    from peclr_tpu_torch import build
     from peclr_tpu_torch.data import native_loader
 
     probe = {}
@@ -1307,7 +1470,11 @@ def host_codecs() -> dict:
         except ImportError:
             probe[name] = None
     probe["native_loader"] = native_loader.available()
-    probe["native_loader_error"] = native_loader.load_error
+    probe["native_library"] = os.path.relpath(
+        build.library_path("jpeg_decode"))
+    ldd = subprocess.run(["ldd", build.library_path("jpeg_decode")],
+                         capture_output=True, text=True).stdout
+    probe["native_links_jpeg"] = "jpeg" in ldd
     ldconfig = subprocess.run(["ldconfig", "-p"], capture_output=True,
                               text=True).stdout
     probe["ldconfig_jpeg"] = [line.strip() for line in ldconfig.splitlines()
@@ -1434,10 +1601,8 @@ def phase_trainer(torch, dev, root):
 
     probe = host_codecs()
     emit("trainer_host", **probe)
-    check(probe["decoder"] is not None,
-          "trainer: no JPEG decoder on this host (native loader: "
-          f"{probe['native_loader_error']}; cv2, PIL: none; libjpeg: "
-          f"{probe['ldconfig_jpeg']})")
+    check(probe["decoder"] == "native" and not probe["native_links_jpeg"],
+          f"trainer: the port's decode pool is not the decoder ({probe})")
     constants.FREIHAND_DATA = os.path.abspath(TRAINER_FIXTURE)
     constants.SAVED_MODELS_BASE_PATH = os.path.join(root, "models")
     constants.SAVED_META_INFO_PATH = os.path.join(root, "meta")
@@ -1502,6 +1667,10 @@ def phase_trainer(torch, dev, root):
     restore_ms = (time.perf_counter() - t0) * 1e3
     decode = {"train": dict(trainer.pipeline.decode_paths),
               "val": dict(trainer.val_pipeline.decode_paths)}
+    for split, paths in decode.items():
+        check(set(paths) == {"native"} and paths["native"] > 0,
+              f"trainer: {split} batches not all decoded on the port's "
+              f"pool: {paths}")
     del trainer, timing
     torch.cuda.empty_cache()
 
@@ -1526,6 +1695,9 @@ def phase_trainer(torch, dev, root):
     replayed = trainer_epochs(replay)[("train", 1)]
     rel = abs(replayed["loss"] / records[("train", 1)]["loss"] - 1.0)
     check(rel <= 1e-2, f"replayed epoch-1 loss rel {rel} > 1e-2")
+    check(set(replay.pipeline.decode_paths) == {"native"},
+          f"replay: batches not all decoded on the port's pool: "
+          f"{dict(replay.pipeline.decode_paths)}")
     replay_launched = kernel_counts()
     check(replay_launched["shift_lerp_grouped"] == per_epoch
           and sum(replay_launched.values()) == per_epoch,
@@ -1541,7 +1713,8 @@ def phase_trainer(torch, dev, root):
          restored_tensors=restored_tensors,
          replayed_epoch1_loss=replayed["loss"], replay_rel=rel,
          replay_tolerance=1e-2, replay_launches=replay_launched,
-         replay_decode_paths=dict(replay.pipeline.decode_paths))
+         replay_decode_paths=dict(replay.pipeline.decode_paths),
+         decode_wait_ms=[e["prefetch_wait_ms"] for e in epochs])
     del replay
     torch.cuda.empty_cache()
     check(os.path.exists(os.path.join(epoch0_dir, "state.pt")),
@@ -3212,9 +3385,12 @@ def main() -> int:
 
     # ---- 2. build --------------------------------------------------------
     t0 = time.perf_counter()
-    per_source = build.build(["shift_lerp", "shift_lerp_matmul"])
+    per_source = build.build(["shift_lerp", "shift_lerp_matmul",
+                              "jpeg_decode"])
     emit("build", seconds=time.perf_counter() - t0, per_source=per_source,
-         arch="sm_90a")
+         arch="sm_90a", host_sources=["jpeg_decode"])
+    # ---- 2a. the port's JPEG decode pool on this host ----------------------
+    phase_decode(torch, dev)
 
     # ---- 3. kernel against plain -------------------------------------------
     kernel_rows = phase_kernel(torch, dev)

@@ -1,18 +1,22 @@
 """Host-side input pipeline: decode -> canvas -> batch -> prefetch to the
 card (port of peclr_tpu/data/pipeline.py).
 
-The host only decodes JPEGs (threaded, or whole batches by the native C++
-pool where it loads) and fits each frame onto a fixed uint8 canvas; the
-augmentation runs batched on the card (ops/augment.py).  `device_prefetch`
-copies batches to the card on a side stream ahead of the step.
+The host only decodes JPEGs (whole batches by the port's own C++ decode
+pool, csrc/jpeg_decode.cc, or one file at a time in a thread pool) and fits
+each frame onto a fixed uint8 canvas; the augmentation runs batched on the
+card (ops/augment.py).  `device_prefetch` copies batches to the card on a
+side stream ahead of the step.
 
 Canvas standardization: frames whose size differs from the canvas (YT3DH)
 are cropped around the hand (side 3.2x the largest keypoint radius,
 clamped to the frame) and resized with cv2; joints and K follow the same
 affine (K' = T @ K).
 
-The decoder order is the reference's: the native decoder
-(`native/libpeclr_loader.so`) when it loads, else cv2, else PIL.
+The decoder order is the reference's: the native pool (the port's own,
+data/native_loader.py, built from its source at first use and linking no
+JPEG library), else cv2, else PIL.  A file the pool refuses (progressive,
+4:1:1, ...) takes the reference's path for a failed native decode: cv2,
+then PIL, and a whole batch goes to the thread pool.
 
 Data parallel (a `mesh`, parallel/mesh.py): every rank makes the same global
 order and decodes only its rows of each batch, in shard_batch's layout, and
@@ -184,7 +188,8 @@ class HostPipeline:
 
     def _native_batch(self, chunk) -> Optional[dict]:
         """Decode a whole batch straight into the canvas with the C++ pool
-        (canvas-native sources only); None where the pool is missing."""
+        (canvas-native sources only); None where the pool is switched off
+        or refused a frame."""
         if not native_loader.available():
             return None
         paths = [self.sources[s].image_path(i) for s, i in chunk]

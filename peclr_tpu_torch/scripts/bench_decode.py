@@ -1,18 +1,19 @@
-"""The host's JPEG decode rates: the native C++ pool, cv2 and PIL, per
-core (port of the reference repository's scripts/bench_decode.py).
+"""The host's JPEG decode rates: the port's own C++ decode pool, cv2 and
+PIL, per core (port of the reference repository's scripts/bench_decode.py).
 
     python -m peclr_tpu_torch.scripts.bench_decode [--num-unique 64]
         [--images 192] [--device cuda]
 
 Decodes the same synthetic FreiHAND frames (224² JPEGs written by
 data/synthetic.py:generate_freihand_like into a temporary directory):
-  * the native pool (`data/native_loader.py`) at THREADS threads, where
-    it loads; where it does not (no libjpeg.so.62 on the host), the
-    artifact says why under `native_unavailable`;
+  * the port's pool (`data/native_loader.py`, csrc/jpeg_decode.cc) on
+    whole batches at THREADS threads (native_img_s, the trainer's path),
+    and one file at a time on one thread (native_single_img_s);
   * cv2.imread and PIL one image at a time on one thread;
   * the threaded decode of data/pipeline.py:HostPipeline (decode_image in
-    a thread pool, cv2 releases the interpreter lock) at THREADS threads,
-    with its rate per core.
+    a thread pool, the pool's one-file call first) at THREADS threads, and
+    the same thread pool over cv2.imread (cv2_threaded_img_s, the path of
+    a file the pool refuses), with their rates per core.
 Only the host works here; the card named in the artifact (--device) is
 the one whose host was measured.  One JSON artifact (--out, default
 tests/fixtures/torch_bench/decode.json).
@@ -81,20 +82,26 @@ def main(argv=None) -> dict:
                   "cpu_cores": common.cpu_cores(), "images": n,
                   "image_size": list(src.image_size),
                   "native_loader": native_loader.available()}
-        if native_loader.available():
-            record["native_img_s"] = {
-                str(t): per_core(rate(
-                    lambda t=t: native_loader.decode_batch_to_canvas(
-                        paths, 224, threads=t), n), t) for t in THREADS}
-        else:
-            record["native_unavailable"] = native_loader.load_error
+        native_loader.decode_batch_to_canvas(paths[:8], 224)  # warm
+        record["native_img_s"] = {
+            str(t): per_core(rate(
+                lambda t=t: native_loader.decode_batch_to_canvas(
+                    paths, 224, threads=t), n), t) for t in THREADS}
+        record["native_single_img_s"] = rate(
+            lambda: [native_loader.decode(p) for p in paths], n)
         try:
             import cv2
         except ImportError:
-            record["cv2_img_s"] = None
+            record["cv2_img_s"] = record["cv2_threaded_img_s"] = None
         else:
             record["cv2_img_s"] = rate(lambda: [cv2.imread(p) for p in paths],
                                        n)
+            cv2_threaded = {}
+            for t in THREADS:
+                with ThreadPoolExecutor(max_workers=t) as pool:
+                    cv2_threaded[str(t)] = per_core(rate(
+                        lambda: list(pool.map(cv2.imread, paths)), n), t)
+            record["cv2_threaded_img_s"] = cv2_threaded
         try:
             from PIL import Image
         except ImportError:

@@ -439,6 +439,12 @@ def test_decode_artifact(tmp_path):
         assert entry["img_s"] > 0 and entry["per_core_img_s"] > 0
     assert record["native_loader"] == ("native_img_s" in record)
     assert record["native_loader"] != ("native_unavailable" in record)
+    # the port's own pool by threads, one file at a time, and threaded cv2
+    assert set(record["native_img_s"]) == set(record["cv2_threaded_img_s"])
+    for entry in (*record["native_img_s"].values(),
+                  *record["cv2_threaded_img_s"].values()):
+        assert entry["img_s"] > 0 and entry["per_core_img_s"] > 0
+    assert record["native_single_img_s"] > 0
 
 
 @pytest.mark.parametrize("phase, argv, names", [

@@ -1,8 +1,9 @@
 """The port's HostPipeline and prefetcher (peclr_tpu_torch/data/pipeline.py)
 against the reference's, batch for batch, on the CPU.
 
-Both pipelines read the same files with the same decoder (the native
-decode pool where it loads, else cv2 or PIL), so images are held bit-equal;
+Both pipelines read the same files, the port with its own decode pool
+(csrc/jpeg_decode.cc) and the reference with its pool over libjpeg (else
+cv2 or PIL in both), and images are held bit-equal;
 labels are computed by the same numpy code, held within 1e-6 of their
 scale.  Cases: the FreiHAND layout at canvas 224 on the native whole-batch
 path and on the threaded path (native decoder switched off in both
@@ -92,8 +93,10 @@ def _assert_batches_equal(ref, got, num_batches=3):
 
 
 @pytest.mark.skipif(not native_loader.available(),
-                    reason="native/libpeclr_loader.so does not load here")
+                    reason="the port's decode pool (csrc/jpeg_decode.cc) is "
+                    "switched off")
 def test_canvas_224_native_path(roots):
+    """The port's own pool against the reference's pool over libjpeg."""
     ref, got = _pipes(roots, 224)
     _assert_batches_equal(ref, got)
     assert got.decode_paths == {"native": 6}

@@ -63,6 +63,23 @@ def test_no_source_names_the_reference():
             assert module.split(".")[0] not in FORBIDDEN, (path, module)
 
 
+def test_no_source_loads_the_reference_build():
+    """The port loads nothing built from the reference package: no source
+    of peclr_tpu_torch (Python, C++ or CUDA) and not chip_smoke.py names
+    the reference's native directory or its decode library."""
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for root, dirs, files in os.walk(os.path.join(REPO, "peclr_tpu_torch")):
+        dirs[:] = [d for d in dirs if d not in ("_build", "__pycache__")]
+        paths += [os.path.join(root, f) for f in files
+                  if f.endswith((".py", ".cc", ".cu", ".cuh", ".h"))]
+    assert any(p.endswith("jpeg_decode.cc") for p in paths)
+    for path in paths:
+        with open(path) as f:
+            text = f.read()
+        for name in ("native/", "libpeclr_loader"):
+            assert name not in text, (path, name)
+
+
 def _run_smoke(cwd):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["CUDA_VISIBLE_DEVICES"] = ""
