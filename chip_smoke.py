@@ -179,7 +179,29 @@ one JSON line that carries the card's name and power limit:
               / busy; bound_by the slowest leg), kernel 1 launched 4 a
               two-pass batch and 32 a recipe step, none of kernels 2-4, and
               no host wait inside a timed window but the one that ends it
- 13. kernels  one line listing every ported kernel
+ 12b. multichip  the multi-card and stream-rate scripts of
+              peclr_tpu_torch/scripts, their artifacts into a temporary
+              directory: bench_multichip's weak scaling at world 1 over NCCL
+              at the RN50 recipe (128 x 16 a card, bf16) cut to one timed
+              step, on the grouped, nhwc and matmul routes in one rank
+              (kernels 1, 3 and 4 inside the DDP step: 2 x accum launches
+              of the route's kernel a step, none of the others, the
+              16-byte path), the first step's loss within 1e-4 relative of
+              the same step without a mesh, which stays within 1e-5 of
+              FIRST_STEP_LOSS, ms a step against it; the scaling table (RN18, f32, the
+              same global batch) at meshes 1 (NCCL), 2 and 4 (gloo ranks
+              sharing the card), two chained steps within 5e-5 relative of
+              mesh 1; multihost_harness (two processes meeting through
+              env://, gloo on one card, their own rows through a
+              cuda_copier) against one process, max_rel_err < 2e-5;
+              bench_streams at [256, 32, 32, 256] bf16 and f32: the four
+              stream kernels of csrc/streams.cu bit-exact against their
+              plain versions (bn_res_relu with a g and b drawn per
+              channel; stats within 1e-6 of the float64 sum, relative to
+              the sum of |x|), no share of the HBM peak above
+              1.05, their eager rows and the BatchNorm's; no host wait
+              inside any timed window
+ 13. kernels  one line listing every ported kernel and the stream kernels
 Then the card's nvidia-smi line, and last the contract line
 {"ok": true, "device": {...}}.  No weights are read (they are made from a
 seed); the only data read is the trainer's fixture.
@@ -2672,42 +2694,12 @@ def phase_pretrain_f32_matmul(torch, dev):
 # phase 6a: the host's waits on the card
 
 
-def host_waits(torch, fn) -> list:
-    """Run fn() once under torch.cuda.set_sync_debug_mode("warn") and
-    return each wait on the card that torch reports (a copy from pageable
-    host memory, .item(), a checked linalg call, ...) as its innermost call
-    sites in this repository; a wait in a backward pass is reported at its
-    .backward()."""
-    import traceback
-    import warnings
-
-    root = os.path.dirname(os.path.abspath(__file__))
-    waits = []
-
-    def record(message, category, filename, lineno, file=None, line=None):
-        # not the note that the debug mode is a prototype
-        if "called a synchronizing CUDA operation" in str(message):
-            waits.append([f"{os.path.relpath(fr.filename, root)}:{fr.lineno}"
-                          for fr in traceback.extract_stack()[:-1]
-                          if fr.filename.startswith(root)][-4:])
-
-    with warnings.catch_warnings():
-        warnings.simplefilter("always")
-        warnings.showwarning = record
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            fn()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    return waits
-
-
 def host_ms_behind_busy_card(torch, fn, busy_ms: float) -> float:
     """The host's time in fn() (ms) while the card works through a spin
     kernel of about busy_ms queued just before it: about busy_ms or more
     when fn waits for the card anywhere, fn's own host time otherwise.
-    Unlike host_waits it also sees waits that torch does not report (a
-    library's own synchronisation)."""
+    Unlike scripts.host_waits it also sees waits that torch does not
+    report (a library's own synchronisation)."""
     probe = 10_000_000
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -2847,6 +2839,8 @@ def phase_host_waits(torch, dev, rn50, x0, K0, require_none: bool = True):
     that launch fewer kernels than the queue holds (a two-pass batch, a
     serving request, the inverses) spend under half the busy time behind
     the card."""
+    from peclr_tpu_torch.scripts import host_waits
+
     t_phase = time.perf_counter()
     paths = host_wait_paths(torch, dev, rn50, x0, K0)
     eye = torch.eye(3, device=dev)
@@ -2862,7 +2856,7 @@ def phase_host_waits(torch, dev, rn50, x0, K0, require_none: bool = True):
         fn()
         own_ms = (time.perf_counter() - t0) * 1e3
         torch.cuda.synchronize()
-        waits = host_waits(torch, fn)
+        waits = host_waits(fn)
         torch.cuda.synchronize()
         busy_ms = max(250.0, 5.0 * own_ms)
         sites = {}
@@ -3076,6 +3070,9 @@ BENCH_LAUNCHES = {"bench_serving": 0, "bench_pred_pipeline": 4 * 8,
                   "bench_host_pipeline": 2 * ACCUM * 7,
                   "profile_step_pretrain": 2 * ACCUM * 4,
                   "profile_step_pred": 4 * 4}
+#: the multichip phase: weak scaling at the recipe's accum (FIRST_STEP_LOSS
+#: is accum 16's first step) cut to one timed step; the streams' launches
+MULTICHIP_ITERS, STREAM_ITERS = 1, 20
 
 
 def phase_accuracy(torch, dev):
@@ -3088,6 +3085,7 @@ def phase_accuracy(torch, dev):
     no host wait (torch's sync debug mode) inside a pretrain or fine-tune
     loop.  Then the proxy's pretrain at RN50, 64 px, 8 steps of 64 on 512
     frames, and one linear_probe on them: finite, 2 launches a step."""
+    from peclr_tpu_torch import scripts as common
     from peclr_tpu_torch.scripts import accuracy_proxy, downstream_chain
 
     tmp = tempfile.mkdtemp(prefix="peclr_accuracy_")
@@ -3096,8 +3094,8 @@ def phase_accuracy(torch, dev):
 
     def watched(*args, **kwargs):
         out = []
-        loop_waits.extend(host_waits(
-            torch, lambda: out.append(real_run_steps(*args, **kwargs))))
+        loop_waits.extend(common.host_waits(
+            lambda: out.append(real_run_steps(*args, **kwargs))))
         return out[0]
 
     downstream_chain.run_steps = watched
@@ -3256,7 +3254,7 @@ def phase_bench_scripts(torch, dev):
     def watched(run, device):
         torch.cuda.synchronize(device)
         t0 = time.perf_counter()
-        window_waits.extend(host_waits(torch, run))
+        window_waits.extend(common.host_waits(run))
         torch.cuda.synchronize(device)
         return time.perf_counter() - t0
 
@@ -3334,6 +3332,135 @@ def phase_bench_scripts(torch, dev):
     return out
 
 
+def phase_multichip(torch, dev):
+    """The multi-card and stream-rate scripts (module docstring, 12b): one
+    line each, and the stream kernels' rows for the kernels line."""
+    from peclr_tpu_torch.scripts import (
+        bench_multichip,
+        bench_streams,
+        multihost_harness,
+    )
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="peclr_multichip_")
+    try:
+        t0 = time.perf_counter()
+        weak = bench_multichip.main([
+            "--world", "1", "--iters", str(MULTICHIP_ITERS),
+            "--route", ",".join(PRETRAIN_ROUTES), "--device", "cuda",
+            "--out", os.path.join(tmp, "multichip_weak.json")])
+        weak_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        table = bench_multichip.main([
+            "--scaling_table", "--mesh_sizes", "1,2,4", "--device", "cuda",
+            "--out", os.path.join(tmp, "multichip_scaling.json")])
+        table_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        harness = multihost_harness.main([
+            "--device", "cuda", "--timeout", "300", "--tmpdir", tmp,
+            "--out", os.path.join(tmp, "multihost_crossproc.json")])
+        harness_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rates = bench_streams.main([
+            "--iters", str(STREAM_ITERS), "--device", "cuda",
+            "--out", os.path.join(tmp, "stream_rates.json")])
+        # the timed launches, not those that held each kernel to its plain
+        # version
+        stream_launches = rates["timed_launches"]
+        streams_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    check(weak["world"] == 1 and weak["collective_backend"] == "nccl",
+          f"weak scaling: world {weak['world']}, "
+          f"{weak['collective_backend']}")
+    for route, got in weak["routes"].items():
+        kname = bench_multichip.ROUTE_KERNEL[route]
+        for launches in (got["launches_per_step_per_rank"][0],
+                         got["no_mesh"]["launches_per_step"]):
+            for name, n in launches.items():
+                want = 2 * ACCUM if name == kname else 0
+                check(n == want, f"weak {route}: {name} launched {n} times a "
+                      f"step, want {want}")
+        if route != "matmul":
+            path = got["last_paths_per_rank"][0][kname]
+            check(path == "vec16", f"weak {route}: the step's last shift "
+                  f"took the {path} path, want vec16")
+        # the BatchNorm across ranks sums the statistics its own way, and
+        # bf16 rounds some activations the other side (7.4e-5 through the
+        # pretraining CLI at world 1)
+        rel = abs(got["loss_step1"] / got["no_mesh"]["loss_step1"] - 1.0)
+        check(math.isfinite(got["loss_step1"]) and rel <= 1e-4,
+              f"weak {route}: first-step loss {got['loss_step1']} against "
+              f"{got['no_mesh']['loss_step1']} without a mesh (rel {rel} > "
+              "1e-4)")
+        drift = abs(got["no_mesh"]["loss_step1"] - FIRST_STEP_LOSS[route])
+        check(drift <= 1e-5, f"weak {route}: the no-mesh first-step loss "
+              f"{got['no_mesh']['loss_step1']} moved from "
+              f"{FIRST_STEP_LOSS[route]}")
+        check(got["host_waits_in_window"] == 0
+              and got["no_mesh"]["host_waits_in_window"] == 0,
+              f"weak {route}: host waits inside the timed window")
+    check([r["mesh"] for r in table["rows"]] == [1, 2, 4]
+          and [r["backend"] for r in table["rows"]] == ["nccl", "gloo",
+                                                         "gloo"],
+          f"scaling table rows {table['rows']}")
+    check(table["max_rel_to_mesh1"] <= 5e-5, f"scaling table: "
+          f"{table['max_rel_to_mesh1']} > 5e-5 relative to mesh 1")
+    check(harness["ok"] and harness["max_rel_err"] < 2e-5
+          and harness["collective_backend"] == "gloo",
+          f"multihost harness: ok {harness['ok']}, "
+          f"{harness.get('max_rel_err')}")
+    for key, case in rates["cases"].items():
+        exact = case.get("bit_exact") or (
+            case.get("max_rel_err_f64", 1.0) <= bench_streams.STATS_TOL)
+        check(exact, f"streams {key}: kernel against plain {case}")
+        check(case["path"] == "vec16", f"streams {key}: path {case['path']}")
+        for row in (case, case["eager"]):
+            check(row["share_of_peak"] <= 1.05, f"streams {key}: share "
+                  f"{row['share_of_peak']} > 1.05 of the HBM peak")
+    check(rates["host_waits_in_windows"] == 0, "streams: host waits inside "
+          "a timed window")
+    for name in ("stream_copy", "stream_add", "stream_bn_res_relu",
+                 "stream_stats"):
+        check(stream_launches.get(name, 0) > 0,
+              f"streams: {name} never launched")
+
+    emit("multichip_weak", seconds=weak_s, artifact=weak)
+    emit("multichip_scaling", seconds=table_s, artifact=table)
+    emit("multihost_harness", seconds=harness_s, artifact=harness)
+    emit("bench_streams", seconds=streams_s, launches=stream_launches,
+         artifact=rates)
+    emit("multichip", seconds=time.perf_counter() - t_phase)
+
+    rows = []
+    source = "peclr_tpu_torch/csrc/streams.cu"
+    for name, pattern, line, library in (
+            ("stream_copy", "copy_1r1w", 104, True),
+            ("stream_add", "add_2r1w", 110, True),
+            ("stream_bn_res_relu", "bn_res_relu_2r1w", 114, False),
+            ("stream_stats", "stats", 120, False)):
+        case = rates["cases"][f"bf16:{pattern}"]
+        rows.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": (f"none (scripts/bench_streams.py:{line}, an XLA "
+                         "fusion of the reference's stream benchmark)"),
+            "launches": stream_launches[name],
+            # stats is two launches a call: the partials, then their sum
+            "launches_per_call": 2 if name == "stream_stats" else 1,
+            "max_abs_err": case.get("max_abs_err",
+                                    case.get("max_abs_err_f64")),
+            "ms": case["ms"], "plain_ms": case["eager"]["ms"],
+            "bound_ms": case["bytes"] / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes",
+            "library_ms": case["eager"]["ms"] if library else None,
+            "timed_case": f"bf16:{pattern}", "path": case["path"],
+            "f32_ms": rates["cases"][f"f32:{pattern}"]["ms"],
+            "f32_bound_ms": (rates["cases"][f"f32:{pattern}"]["bytes"]
+                             / HBM_BYTES_PER_S * 1e3)})
+    return {"weak": weak, "kernel_rows": rows}
+
+
 def main() -> int:
     global CARD
     try:
@@ -3385,7 +3512,7 @@ def main() -> int:
 
     # ---- 2. build --------------------------------------------------------
     t0 = time.perf_counter()
-    per_source = build.build(["shift_lerp", "shift_lerp_matmul",
+    per_source = build.build(["shift_lerp", "shift_lerp_matmul", "streams",
                               "jpeg_decode"])
     emit("build", seconds=time.perf_counter() - t0, per_source=per_source,
          arch="sm_90a", host_sources=["jpeg_decode"])
@@ -3591,6 +3718,12 @@ def main() -> int:
     # ---- 12. the accuracy path; 12a. the measurement scripts ---------------------
     accuracy_run = phase_accuracy(torch, dev)
     phase_bench_scripts(torch, dev)
+    # ---- 12b. the multi-card and stream-rate scripts ------------------------------
+    multichip_run = phase_multichip(torch, dev)
+    from peclr_tpu_torch.scripts.bench_multichip import ROUTE_KERNEL
+    weak_launches = {route: multichip_run["weak"]["routes"][route][
+        "launches_per_step_per_rank"][0][ROUTE_KERNEL[route]]
+        for route in PRETRAIN_ROUTES}
 
     # ---- 13. kernels line --------------------------------------------------------
     def summary(name, source, replaces, launches, rows, timed_case, **extra):
@@ -3627,6 +3760,7 @@ def main() -> int:
                     for e in ablation_run["epochs"]],
                 launches_per_ddp_step_per_rank=ddp_run["rn50"][
                     "launches_per_rank"]["shift_lerp_grouped"],
+                launches_per_weak_scaling_step=weak_launches["grouped"],
                 launches_per_ddp_cli_epoch=[
                     e["launches"]["shift_lerp_grouped"]
                     for e in ddp_run["cli"]["epochs"]],
@@ -3670,6 +3804,7 @@ def main() -> int:
                 pass1_device_ms=flat_of["flat_pass1_u8_to_bf16"]["device_ms"],
                 launches_per_ablation_step=ablation_run["routes"]["nhwc"][
                     "launches"]["shift_lerp_flat"],
+                launches_per_ddp_step_per_rank=weak_launches["nhwc"],
                 ablation_pass1_ms=flat_of["flat_ablation_pass1_bf16_to_bf16"][
                     "ms"],
                 ablation_pass1_device_ms=flat_of[
@@ -3687,6 +3822,7 @@ def main() -> int:
                 band_pass_device_ms=matmul_of["tap_band_pass1"]["device_ms"],
                 launches_per_f32_step=f32_runs["matmul"]["launches"][
                     "shift_lerp_matmul"],
+                launches_per_ddp_step_per_rank=weak_launches["matmul"],
                 f32_taps={case: {key: matmul_of[case][key] for key in (
                     "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                     "grouped_route_ms", "band_taps_mean", "max_abs")}
@@ -3702,6 +3838,7 @@ def main() -> int:
                     "matmul_ablation_pass1_bf16_to_bf16"]["device_ms"],
                 nonfinite={r["case"]: r["device_ms"] for r in nonfinite_rows},
                 nonfinite_max_abs=max(r["max_abs"] for r in nonfinite_rows)),
+        *multichip_run["kernel_rows"],
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     emit("done", seconds=time.perf_counter() - t_start)

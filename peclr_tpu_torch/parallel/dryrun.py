@@ -26,6 +26,8 @@ import torch
 
 #: seconds a rank may wait in a collective, and the dry run may take
 TIMEOUT_S = 600.0
+#: seconds between spawn's looks at its ranks while it waits for results
+_POLL_S = 1.0
 
 
 def _rank_main(fn, rank, world, init_method, device, backend, timeout, args,
@@ -49,12 +51,15 @@ def _rank_main(fn, rank, world, init_method, device, backend, timeout, args,
             dist.destroy_process_group()
 
 
-def spawn(fn: Callable, world: int, args: Sequence = (), device="cpu",
+def spawn(fn: Callable, world: int, args: Sequence = (), device=None,
           backend: Optional[str] = None, timeout: float = TIMEOUT_S
           ) -> List[Any]:
     """Run fn(mesh, *args) in `world` fresh processes (the spawn start
     method), one a rank of a new process group that meets through a file in
-    a temporary directory, and return their results by rank.  fn must be
+    a temporary directory, and return their results by rank.  `device` is
+    the card when None (device.py:resolve_device, which raises here, before
+    any process starts, where there is none); an unindexed "cuda" gives rank
+    r the card r mod the card count.  fn must be
     importable by name, and its arguments and result must pickle (numpy
     arrays and numbers; tensors go as torch pickles them).  A rank's
     exception re-raises here with its traceback and stops the other ranks;
@@ -62,6 +67,11 @@ def spawn(fn: Callable, world: int, args: Sequence = (), device="cpu",
     collective's wait."""
     import multiprocessing as mp
 
+    from peclr_tpu_torch.device import resolve_device
+
+    if device is None or torch.device(device).type == "cuda":
+        resolve_device(device)  # raises without a card
+        device = "cuda" if device is None else device
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     store = tempfile.mkdtemp(prefix="peclr_spawn_")
@@ -74,16 +84,28 @@ def spawn(fn: Callable, world: int, args: Sequence = (), device="cpu",
     try:
         for proc in procs:
             proc.start()
-        for _ in range(world):
+        returned = set()
+        while len(returned) < world:
+            # wake each second to see whether a rank died without a result
+            # (one that failed to start, or was killed)
+            left = deadline - time.monotonic()
             try:
                 rank, ok, payload = results.get(
-                    timeout=max(deadline - time.monotonic(), 0.0))
+                    timeout=max(min(left, _POLL_S), 0.0))
             except queue.Empty:
-                dead = [i for i, p in enumerate(procs)
-                        if p.exitcode not in (None, 0)]
-                raise TimeoutError(
-                    f"spawn: {world} ranks did not finish in {timeout} s "
-                    f"(ranks exited with an error: {dead})") from None
+                dead = {i: p.exitcode for i, p in enumerate(procs)
+                        if i not in returned and p.exitcode not in (None, 0)}
+                if dead and results.empty():
+                    raise RuntimeError(
+                        f"spawn: ranks {sorted(dead)} exited with codes "
+                        f"{list(dead.values())} before returning a "
+                        "result") from None
+                if left <= 0:
+                    raise TimeoutError(
+                        f"spawn: {world} ranks did not finish in {timeout} "
+                        "s") from None
+                continue
+            returned.add(rank)
             if not ok:
                 raise RuntimeError(f"spawn: rank {rank} failed:\n{payload}")
             out[rank] = pickle.loads(payload)

@@ -9,13 +9,17 @@ scripts/ of the same names:
     python -m peclr_tpu_torch.scripts.bench_host_pipeline [...]
     python -m peclr_tpu_torch.scripts.bench_pred_pipeline [...]
     python -m peclr_tpu_torch.scripts.trace_buckets TRACE.json [top_n]
+    python -m peclr_tpu_torch.scripts.bench_multichip [...]
+    python -m peclr_tpu_torch.scripts.multihost_harness [...]
+    python -m peclr_tpu_torch.scripts.bench_streams [...]
 
 Each runs on the card unless given `--device cpu`.  The accuracy
 harnesses write their artifacts under tests/fixtures/torch_accuracy/, the
 measurement scripts under tests/fixtures/torch_bench/.  This module holds
 what they share: the reference's initial weights (their distribution: the
-flax defaults), the card's name for the records, the step loop, and the
-timed window that ends in the one wait on the card.
+flax defaults), the card's name for the records, the step loop, the
+timed window that ends in the one wait on the card, and the count of the
+host's waits inside such a window.
 """
 
 from __future__ import annotations
@@ -121,6 +125,39 @@ def chained_seconds(run: Callable[[], object], device: torch.device) -> float:
     run()
     sync(device)
     return time.perf_counter() - t0
+
+
+def host_waits(run: Callable[[], object]) -> list:
+    """Run run() once under torch.cuda.set_sync_debug_mode("warn") and
+    return each wait on the card that torch reports (a copy from pageable
+    host memory, .item(), a checked linalg call, ...) as its innermost call
+    sites in this repository, "file:line"; a wait in a backward pass is
+    reported at its .backward().  Empty on the CPU, where nothing waits."""
+    import traceback
+    import warnings
+
+    if not torch.cuda.is_available():
+        run()
+        return []
+    waits = []
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        # not the note that the debug mode is a prototype
+        if "called a synchronizing CUDA operation" in str(message):
+            waits.append([
+                f"{os.path.relpath(fr.filename, REPO_ROOT)}:{fr.lineno}"
+                for fr in traceback.extract_stack()[:-1]
+                if fr.filename.startswith(REPO_ROOT)][-4:])
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return waits
 
 
 def cpu_cores() -> int:

@@ -7,7 +7,10 @@ serving latency by batch (bench_serving), the leaderboard's dispatch
 pipelining (bench_pred_pipeline), the host pipeline's balance
 (bench_host_pipeline), the host's decode rates (bench_decode) and the
 step's device time by bucket (profile_step with trace_buckets; these
-replace the reference's hlo_stats_*.json.gz, whose layout is XLA's).
+replace the reference's hlo_stats_*.json.gz, whose layout is XLA's),
+weak scaling of the recipe step under DDP and the mesh-scaling table
+(bench_multichip), the two-process harness (multihost_harness) and the
+HBM stream rates (bench_streams).
 Each claim below is the reference's, beside the line of
 tests/test_bench_artifacts.py that makes it, with the card's own numbers
 where the reference compared with a TPU constant; the TPU's ms figures
@@ -39,6 +42,14 @@ COMMANDS = {
     "profile_pretrain_matmul": _RUN + "profile_step --route matmul --trace",
     "profile_pretrain_ablate": (_RUN + "profile_step --ablate "
                                 "noaug,adam,stats,augonly --trace"),
+    "multichip_weak": _RUN + "bench_multichip --route grouped,nhwc,matmul",
+    "multichip_weak_f32_accum2": (
+        _RUN + "bench_multichip --route grouped,nhwc,matmul --accum 2 "
+        "--iters 1 --precision f32 --out "
+        "tests/fixtures/torch_bench/multichip_weak_f32_accum2.json"),
+    "multichip_scaling": _RUN + "bench_multichip --scaling_table",
+    "multihost_crossproc": _RUN + "multihost_harness",
+    "stream_rates": _RUN + "bench_streams",
 }
 #: each profile artifact's variants
 VARIANTS = [("profile_pretrain", "full"), ("profile_finetune", "finetune"),
@@ -322,3 +333,182 @@ def test_convolution_dominates_the_busy_time(phase):
     trace = next(iter(art["variants"].values()))["trace"]
     share = trace["buckets_ms"].get("convolution", 0.0) / trace["busy_ms"]
     assert share > CONV_SHARE, share
+
+
+# ---------------------------------------------------------------------------
+# multi-card scaling (TestMultichipScaling, :70-97; TestCrossProcess
+# .test_committed_artifact, tests/test_multihost.py:87-101)
+
+#: first-step losses of the recipe step without a mesh on each route (the
+#: smoke's pretrain phase, chip_smoke.py:FIRST_STEP_LOSS: the same seeded
+#: state, batch and draws)
+FIRST_STEP_LOSS = {"grouped": 5.561449, "nhwc": 5.561449, "matmul": 5.561674}
+
+
+@pytest.fixture(scope="module")
+def scaling():
+    return _load("multichip_scaling")
+
+
+def test_scaling_covers_1_2_4_8(scaling):
+    assert [r["mesh"] for r in scaling["rows"]] == [1, 2, 4, 8]
+
+
+def test_scaling_loss_equal_across_mesh_sizes(scaling):
+    rows = scaling["rows"]
+    for key in ("loss_step1", "loss_step2"):
+        base = rows[0][key]
+        for r in rows[1:]:
+            assert abs(r[key] - base) <= 5e-5 * abs(base), (key, rows)
+
+
+def test_scaling_rows_use_nccl_up_to_the_card_count(scaling):
+    """The reference's configuration in f32; a row's backend is NCCL up to
+    the card count and gloo beyond it."""
+    cfg = scaling["config"]
+    assert (cfg["global_microbatch"], cfg["accum"], cfg["resnet"],
+            cfg["canvas"], cfg["view"], cfg["precision"]) == (
+                8, 2, "18", 64, 32, "f32")
+    for row in scaling["rows"]:
+        want = "nccl" if row["mesh"] <= scaling["cards"] else "gloo"
+        assert row["backend"] == want, row
+
+
+def test_crossproc_committed_artifact():
+    rec = _load("multihost_crossproc")
+    assert rec["ok"] is True
+    assert rec["worker_exit_codes"] == [0, 0]
+    ws = rec["workers"]
+    assert [w["process_id"] for w in ws] == [0, 1]
+    assert all(w["process_count"] == 2 and w["local_devices"] == 1
+               and w["global_devices"] == 2 for w in ws)
+    assert ws[0]["losses"] == ws[1]["losses"]
+    assert rec["max_rel_err"] < 2e-5
+    assert all(w["device"].startswith("cuda") for w in ws)
+
+
+@pytest.fixture(scope="module")
+def weak():
+    return _load("multichip_weak")
+
+
+def test_weak_scaling_ran_the_recipe_on_every_route(weak):
+    """The recipe (128 a card x 16, RN50, bf16, with_stats=False) at world
+    1 over NCCL, on each route: the route's kernel 2 x 16 times a step
+    inside the DDP step and none of the others', no host wait in the
+    timed window, global batch = batch x accum x world."""
+    cfg = weak["config"]
+    assert (cfg["batch"], cfg["accum"], cfg["resnet"], cfg["precision"],
+            cfg["with_stats"]) == (128, 16, "50", "bf16", False)
+    assert weak["world"] == 1 and weak["collective_backend"] == "nccl"
+    assert weak["global_batch_per_step"] == 128 * 16 * weak["world"]
+    from peclr_tpu_torch.scripts.bench_multichip import ROUTE_KERNEL as kernel
+
+    assert set(weak["routes"]) == set(kernel)
+    for route, got in weak["routes"].items():
+        for launches in got["launches_per_step_per_rank"]:
+            assert launches == {k: (32 if k == kernel[route] else 0)
+                                for k in launches}, route
+        assert got["host_waits_in_window"] == 0
+        assert got["no_mesh"]["host_waits_in_window"] == 0
+
+
+def test_weak_scaling_first_step_is_the_no_mesh_step(weak):
+    """The no-mesh step on the smoke's recorded first-step loss within
+    1e-5, and the step across ranks within 1e-4 relative of it (its
+    BatchNorm sums the statistics in another order, and bf16 rounds some
+    activations the other side; 7.4e-5 through the pretraining CLI at
+    world 1)."""
+    for route, got in weak["routes"].items():
+        base = got["no_mesh"]["loss_step1"]
+        assert abs(base - FIRST_STEP_LOSS[route]) <= 1e-5, route
+        assert abs(got["loss_step1"] / base - 1.0) <= 1e-4, route
+
+
+def test_weak_scaling_f32_first_step_is_the_no_mesh_step():
+    """The recipe at accum 2 in f32 with TF32 off, world 1 over NCCL: the
+    DDP step's first loss within 1e-6 relative of the no-mesh step's on
+    every route, so that the 1e-4 the bf16 step is held to above is bf16's
+    rounding and not a fault of the DDP step (in bf16 at accum 2 the two
+    differ by 1.7e-4, PERF.md)."""
+    from peclr_tpu_torch.scripts.bench_multichip import ROUTE_KERNEL
+
+    art = _load("multichip_weak_f32_accum2")
+    cfg = art["config"]
+    assert (cfg["batch"], cfg["accum"], cfg["resnet"], cfg["precision"],
+            cfg["with_stats"]) == (128, 2, "50", "f32", False)
+    assert art["world"] == 1 and art["collective_backend"] == "nccl"
+    assert set(art["routes"]) == set(ROUTE_KERNEL)
+    for route, got in art["routes"].items():
+        assert abs(got["loss_step1"] / got["no_mesh"]["loss_step1"]
+                   - 1.0) <= 1e-6, route
+        for launches in got["launches_per_step_per_rank"]:
+            assert launches == {k: (4 if k == ROUTE_KERNEL[route] else 0)
+                                for k in launches}, route
+
+
+# ---------------------------------------------------------------------------
+# HBM stream rates (scripts/bench_streams.py; no test of its own in the
+# reference)
+
+
+@pytest.fixture(scope="module")
+def rates():
+    return _load("stream_rates")
+
+
+def test_stream_bytes_are_as_stated(rates):
+    """Each input read once and each output written once: copy 2N, add and
+    bn_res_relu 3N (+ g and b), stats N (+ the 2C sums), N the tensor's
+    bytes at the layer-1 fusion shape."""
+    assert rates["shape"] == [256, 32, 32, 256]
+    elems = 256 * 32 * 32 * 256
+    for dtype, size in (("bf16", 2), ("f32", 4)):
+        n = elems * size
+        for pattern, nbytes in (("copy_1r1w", 2 * n), ("add_2r1w", 3 * n),
+                                ("bn_res_relu_2r1w", 3 * n + 2 * 256 * 4),
+                                ("stats", n + 2 * 256 * 4)):
+            assert rates["cases"][f"{dtype}:{pattern}"]["bytes"] == nbytes
+
+
+def test_no_share_exceeds_the_peak(rates):
+    rows = [row for case in rates["cases"].values()
+            for row in (case, case["eager"])]
+    rows += [v for v in rates["batchnorm_train"].values()
+             if isinstance(v, dict)]
+    for row in rows:
+        assert 0 < row["share_of_peak"] <= 1.05, row
+        assert row["GBps"] == pytest.approx(
+            row["share_of_peak"] * rates["peak_bytes_per_s"] / 1e9)
+
+
+#: copy's and add's eager rows are one torch kernel making the same one pass
+#: as the stream kernel: the two run at one rate, the kernel 0.5-1.5% slower
+#: in the committed run, 0.7% either side in an earlier one and up to 1.4%
+#: slower in the smoke's shorter one after its other phases (PERF.md), so
+#: "no slower" holds within 2%; bn_res_relu's and stats' eager rows are
+#: several passes, and the kernel must be at least twice as fast
+PARITY = 1.02
+
+
+def test_each_kernel_is_no_slower_than_its_eager_row(rates):
+    for key, case in rates["cases"].items():
+        assert case["ms"] <= case["eager"]["ms"] * PARITY, (key, case)
+        if key.endswith((":bn_res_relu_2r1w", ":stats")):
+            assert case["eager"]["ms"] >= 2 * case["ms"], (key, case)
+
+
+def test_stream_kernels_agree_with_their_plain_versions(rates):
+    """Bit-exact elementwise passes on their 16-byte path, bn_res_relu with
+    a g and b drawn per channel; stats within 1e-6 of the float64 sum (one
+    of the 262,144 rows a channel dropped costs about 3.8e-6); no host
+    wait in any timed window."""
+    for key, case in rates["cases"].items():
+        assert case["path"] == "vec16", key
+        if key.endswith(":stats"):
+            assert case["max_rel_err_f64"] <= 1e-6, key
+        else:
+            assert case["bit_exact"] is True, key
+        if key.endswith(":bn_res_relu_2r1w"):
+            assert case["checked_with"].startswith("g ~ U(0.5, 1.5)"), key
+    assert rates["host_waits_in_windows"] == 0

@@ -1051,3 +1051,116 @@ def test_shift_matmul_kernel_keeps_nonfinite_windows(card, src_dtype,
         assert torch.equal(mask(got), mask(ref)), mask.__name__
     finite = torch.isfinite(ref)
     assert (got[finite] - ref[finite]).abs().max().item() <= 1e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("offset", [0, 1], ids=["vec16", "scalar"])
+def test_stream_kernels_match_plain(card, dtype, offset):
+    """csrc/streams.cu against ops/streams.py's plain versions on the card:
+    copy, add and bn_res_relu bit-exact, stats within 1e-5 of the float64
+    sum relative to the channel's sum of |x| (of x² for the squares); on
+    the 16-byte path and, one element into the buffers, the scalar path;
+    a ragged element count (not a multiple of 8); one launch a call."""
+    from peclr_tpu_torch.ops import streams
+
+    rng = np.random.default_rng(15)
+    shape, c = (3, 5, 7, 64), 64
+    n = int(np.prod(shape))
+
+    def tensor(seed):
+        flat = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+            n + 16).astype(np.float32)).to(card, dtype)
+        return flat[offset:offset + n].view(shape)
+
+    x, r = tensor(1), tensor(2)
+    g = torch.from_numpy(rng.uniform(0.5, 1.5, c).astype(np.float32)).to(card)
+    b = torch.from_numpy(rng.uniform(-1, 1, c).astype(np.float32)).to(card)
+    for kernel, plain, extras in (
+            (streams.stream_copy, streams.copy_plain, ()),
+            (streams.stream_add, streams.add_plain, (r,)),
+            (streams.stream_bn_res_relu, streams.bn_res_relu_plain,
+             (r, g, b))):
+        launches = kernel.launches
+        got = kernel(x, *extras)
+        assert torch.equal(got, plain(x, *extras)), kernel.__name__
+        assert kernel.launches == launches + 1
+        assert kernel.last_path == ("vec16" if offset == 0 else "scalar")
+    ragged = x.reshape(-1)[:n - 3]
+    assert torch.equal(streams.stream_copy(ragged), ragged + 1)
+    launches = streams.stream_stats.launches
+    got = streams.stream_stats(x).double()
+    assert streams.stream_stats.launches == launches + 2  # partials, sum
+    xd = x.double().reshape(-1, c)
+    want = torch.stack([xd.sum(0), (xd * xd).sum(0)])
+    scale = torch.stack([xd.abs().sum(0), (xd * xd).sum(0)])
+    assert ((got - want).abs() / scale).max().item() <= 1e-5
+    assert streams.stream_stats.last_path == ("vec16" if offset == 0
+                                              else "scalar")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_stream_kernels_match_plain_at_many_rows(card, dtype):
+    """The stream kernels on their 16-byte path at the layer-1 fusion's
+    width with 16,384 rows a channel, so that every stats thread walks
+    its unrolled rows and the grid-stride tail: bn_res_relu bit-exact
+    with bench_streams' g and b drawn per channel (a kernel that skipped
+    them, or read another channel's, would differ), stats within
+    bench_streams.STATS_TOL of the float64 sum, where one row dropped or
+    counted twice costs about 6e-5 of a channel's sum of |x|."""
+    from peclr_tpu_torch.ops import streams
+    from peclr_tpu_torch.scripts import bench_streams
+
+    shape = (16, 32, 32, 256)
+    x, r = (torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        shape).astype(np.float32)).to(card, dtype) for seed in (3, 4))
+    g, b = bench_streams.check_scale_shift(shape[-1], card)
+    got = streams.stream_bn_res_relu(x, r, g, b)
+    assert streams.stream_bn_res_relu.last_path == "vec16"
+    assert torch.equal(got, streams.bn_res_relu_plain(x, r, g, b))
+    rel, _ = bench_streams._stats_err(streams.stream_stats(x), x)
+    assert streams.stream_stats.last_path == "vec16"
+    assert rel <= bench_streams.STATS_TOL, rel
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("route", ["nhwc", "matmul"])
+def test_weak_scaling_runs_kernels_3_and_4_under_ddp(card, route, tmp_path):
+    """bench_multichip's weak scaling at world 1 over NCCL (RN18, 64² to
+    32², 8 rows, accum 2): kernel 3 or 4 inside the DDP step, 2 x accum
+    launches a step and none of the others', the first step within 1e-3
+    relative of the same step without a mesh (bf16: the BatchNorm across
+    ranks rounds some activations the other side, and 2 microbatches of 16
+    views average little of it away), no host wait in the timed window."""
+    from peclr_tpu_torch.scripts import bench_multichip
+
+    rec = bench_multichip.main([
+        "--world", "1", "--resnet", "18", "--canvas", "64", "--view", "32",
+        "--batch", "8", "--accum", "2", "--iters", "1", "--route", route,
+        "--out", str(tmp_path / "weak.json")])
+    got = rec["routes"][route]
+    kname = bench_multichip.ROUTE_KERNEL[route]
+    assert rec["collective_backend"] == "nccl"
+    for launches in (got["launches_per_step_per_rank"][0],
+                     got["no_mesh"]["launches_per_step"]):
+        assert launches == {k: (4 if k == kname else 0) for k in launches}
+    assert abs(got["loss_step1"] / got["no_mesh"]["loss_step1"] - 1) <= 1e-3
+    assert got["host_waits_in_window"] == 0
+
+
+@pytest.mark.parametrize("route", ["grouped", "nhwc", "matmul"])
+def test_weak_scaling_f32_mesh_step_is_the_no_mesh_step(card, route,
+                                                        tmp_path):
+    """The case above in f32 with TF32 off: at world 1 the DDP step's first
+    loss is the no-mesh step's within 1e-6 relative (the BatchNorm across
+    ranks sums its statistics in another order, and f32 rounds it away;
+    bf16 does not, the case above)."""
+    from peclr_tpu_torch.scripts import bench_multichip
+
+    rec = bench_multichip.main([
+        "--world", "1", "--resnet", "18", "--canvas", "64", "--view", "32",
+        "--batch", "8", "--accum", "2", "--iters", "1", "--route", route,
+        "--precision", "f32", "--out", str(tmp_path / "weak.json")])
+    got = rec["routes"][route]
+    assert rec["config"]["precision"] == "f32"
+    assert abs(got["loss_step1"] / got["no_mesh"]["loss_step1"] - 1) <= 1e-6

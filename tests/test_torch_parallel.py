@@ -25,6 +25,9 @@ test_torch_parallel_step.py and test_torch_parallel_cli.py use them too);
 this file imports neither JAX nor the reference, so the ranks start fast.
 """
 
+import os
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -332,6 +335,33 @@ def test_host_pipeline_decodes_only_the_rank_rows():
 # (ii) the collectives
 
 
+def test_spawn_defaults_to_the_card(monkeypatch):
+    """spawn with no device asks for the card (device.py:resolve_device):
+    without one it raises before it starts any process."""
+    import multiprocessing
+
+    started = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(multiprocessing, "get_context",
+                        lambda *a, **k: started.append(a))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        spawn(_collectives_rank, WORLD, args=([], {}))
+    assert started == []
+
+
+def _dead_rank(mesh):
+    os._exit(3)
+
+
+def test_spawn_fails_fast_when_a_rank_dies():
+    """A rank that exits without a result (killed, or failed to start)
+    fails spawn at once, not at its timeout."""
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError, match=r"exited with codes \[3, 3\]"):
+        spawn(_dead_rank, WORLD, device="cpu", timeout=TIMEOUT_S)
+    assert time.monotonic() - t0 < 60.0
+
+
 def test_collectives_match_one_process():
     rng = np.random.default_rng(3)
     xs = [rng.normal(size=(3, 4)).astype(np.float32) for _ in range(WORLD)]
@@ -339,7 +369,8 @@ def test_collectives_match_one_process():
                      for _ in range(WORLD)],
           "reduce": [rng.normal(size=(3, 4)).astype(np.float32)
                      for _ in range(WORLD)]}
-    got = spawn(_collectives_rank, WORLD, args=(xs, ws), timeout=TIMEOUT_S)
+    got = spawn(_collectives_rank, WORLD, args=(xs, ws), device="cpu",
+                timeout=TIMEOUT_S)
     gathered = np.concatenate(xs)
     summed = np.sum(xs, axis=0, dtype=np.float32)
     w_gather, w_reduce = sum(ws["gather"]), sum(ws["reduce"])
@@ -356,7 +387,7 @@ def test_collectives_match_one_process():
 def test_batchnorm_across_ranks_matches_the_whole_batch():
     x, dy = batchnorm_inputs()
     ranks = spawn(_batchnorm_rank, WORLD, args=(x, dy, ("cpu",)),
-                  timeout=TIMEOUT_S)
+                  device="cpu", timeout=TIMEOUT_S)
     check_batchnorm_ranks(ranks, x, dy, "cpu", rtol=1e-5)
 
 
@@ -371,7 +402,7 @@ def runs():
     try:
         draws = seeded_draws()
         ranks = spawn(_steps_and_local_rank, WORLD, args=(draws,),
-                      timeout=TIMEOUT_S)
+                      device="cpu", timeout=TIMEOUT_S)
         return ([r[0] for r in ranks], [r[1] for r in ranks],
                 run_pretrain_steps(draws))
     finally:

@@ -101,7 +101,8 @@ def runs(tmp_path_factory):
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
-        ranks = spawn(_cli_rank, WORLD, args=(root,), timeout=TIMEOUT_S)
+        ranks = spawn(_cli_rank, WORLD, args=(root,), device="cpu",
+                      timeout=TIMEOUT_S)
         from peclr_tpu_torch.cli import train as cli
 
         one_root = str(tmp_path_factory.mktemp("one_process_cli"))

@@ -99,7 +99,7 @@ def runs():
     torch.set_num_threads(1)
     try:
         ranks = spawn(_pretrain_rank, WORLD, args=(steps_draws,),
-                      timeout=TIMEOUT_S)
+                      device="cpu", timeout=TIMEOUT_S)
     finally:
         torch.set_num_threads(threads)
     assert_ranks_bit_equal(ranks)

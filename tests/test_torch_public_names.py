@@ -31,7 +31,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: the reference's scripts with a counterpart in peclr_tpu_torch/scripts/
 SCRIPTS = ("accuracy_proxy.py", "downstream_chain.py", "trace_buckets.py",
            "profile_step.py", "bench_serving.py", "bench_decode.py",
-           "bench_host_pipeline.py", "bench_pred_pipeline.py")
+           "bench_host_pipeline.py", "bench_pred_pipeline.py",
+           "bench_multichip.py", "multihost_harness.py", "bench_streams.py")
 
 #: reference names the port does not have, each with what covers it: JAX-
 #: or TPU-only names, and names whose job the port does another way.  "*"
