@@ -82,6 +82,19 @@ one JSON line that carries the card's name and power limit:
               launches), after one warm-up step, against the same step on
               the grouped route in f32 with the same draws: loss within
               1e-3 relative, ms a step, peak memory
+ 7b. repeat   kernels 1-4 at the recipe's shapes (kernel 1 pass 1 and 2,
+              kernel 2 raw on pass 1's rows, kernel 3 pass 1, kernel 4 pass
+              1 with bf16 and with f32 taps), each launched 20 times, every
+              output bit-equal to the first: alone, then while a second
+              process (this script re-entered with --recipe-load) runs the
+              RN50 recipe step on the card, waited for until its first
+              step is done; then the f32 recipe step on the matmul route
+              (TF32 off) twice from one state, batch and draws: the loss,
+              every gradient and every leaf module's forward output
+              (integer digests of its bits) compared bit for bit and, where
+              they differ, again under torch.use_deterministic_algorithms
+              and cudnn.deterministic (set here only, restored after); the
+              finding on a line of its own (repeat_finding)
   8. trainer  first the host's JPEG codecs (the port's pool, which must be
               the decoder and link no libjpeg, cv2, PIL, the host's
               libjpeg), then the pretraining CLI (peclr_tpu_torch.cli.train)
@@ -96,7 +109,10 @@ one JSON line that carries the card's name and power limit:
               bytes and save/restore ms; the replay's state as its fit
               starts equal to the bit to epoch 0's checkpoint (model,
               optimizer moments and count, step), its epoch-1 loss within
-              1e-2
+              1e-2; the initial weights the CLI draws (trainer_initial_
+              weights: the stem's and the first dense layer's standard
+              deviation within 5% of the reference's He-normal and
+              lecun-normal, every bias 0)
   9. finetune the fine-tune step of RN25DPose (RN18, 64² crops, batch 8,
               f32) on the card against the CPU from the same weights and
               draws: loss and every BatchNorm running statistic (the z-root
@@ -105,7 +121,8 @@ one JSON line that carries the card's name and power limit:
               128, 224² canvases to 128² crops, adam, f32 model, bf16 warp)
               from the trainer's epoch-0 checkpoint for two epochs of two
               steps over the same fixture: the backbone equal to the bit to
-              the pretrained encoder before the first step, per epoch the
+              the pretrained encoder before the first step (its initial
+              draw on a line as the trainer's), per epoch the
               loss, ms a step, img/s, the wait on the prefetcher, peak
               memory, kernel 1 launched 2 a step and the others none; where
               a step's time goes (CUDA events of the sample, forward,
@@ -201,6 +218,15 @@ one JSON line that carries the card's name and power limit:
               the sum of |x|), no share of the HBM peak above
               1.05, their eager rows and the BatchNorm's; no host wait
               inside any timed window
+ 12c. entry   peclr_tpu_torch.entry.entry() on the card: the RN50 bf16
+              projection of its example, (8, 128) float32, finite, no host
+              wait; on seeded images within 5e-2 (of the largest value) of
+              the same model's f32 projection on the CPU
+ 12d. bench_guard  scripts/bench_guard.py's four phases (RN50 and RN152
+              recipe steps, fine-tune, two-pass batch) cut to 2 iterations
+              and one window: every rate, ms and busy ms finite and
+              positive, kernel 1's launches counted, kernels 2-4 none; the
+              band verdict printed, not checked
  13. kernels  one line listing every ported kernel and the stream kernels
 Then the card's nvidia-smi line, and last the contract line
 {"ok": true, "device": {...}}.  No weights are read (they are made from a
@@ -1128,6 +1154,37 @@ def microbatch_breakdown(torch, model, opt, batch, draws, route):
     return {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
 
 
+def host_op_times(host) -> dict:
+    """{name: [calls, self ms, total ms]} of the host's spans
+    (trace_buckets.spans_of_profile): a span's self time is its own less
+    its direct children's on the same thread, as key_averages counts it,
+    without the profiler's slow event tree."""
+    times = {}
+    by_thread = {}
+    for s in host:
+        by_thread.setdefault(s.stream, []).append(s)
+    for spans in by_thread.values():
+        stack = []  # [span, time of its direct children]
+        for s in sorted(spans, key=lambda s: (s.start_us, -s.end_us)):
+            while stack and stack[-1][0].end_us <= s.start_us:
+                _close(stack.pop(), times)
+            if stack:
+                stack[-1][1] += s.end_us - s.start_us
+            stack.append([s, 0.0])
+        while stack:
+            _close(stack.pop(), times)
+    return times
+
+
+def _close(entry, times) -> None:
+    s, children = entry
+    total = (s.end_us - s.start_us) / 1e3
+    row = times.setdefault(s.name, [0, 0.0, 0.0])
+    row[0] += 1
+    row[1] += total - children / 1e3
+    row[2] += total
+
+
 def trace_summary(torch, prof, wall_ms: float) -> dict:
     """What a torch.profiler capture of `wall_ms` shows: the card's busy
     time (the union of its intervals, scripts/trace_buckets.py) against
@@ -1142,20 +1199,21 @@ def trace_summary(torch, prof, wall_ms: float) -> dict:
         return {"device_time": "not measured (no CUDA events)"}
     summary = trace_buckets.summarize(device, host, top_n=10)
     nccl = [s for s in device if trace_buckets.bucket(s.name, s.op) == "nccl"]
-    ops = prof.key_averages()
-    top_host = sorted(ops, key=lambda a: -a.self_cpu_time_total)[:12]
-    calls = [a for a in ops if "allreduce" in a.key.lower()]
+    ops = host_op_times(host)
+    top_host = sorted(ops.items(), key=lambda kv: -kv[1][1])[:12]
     return {
         "profiled_wall_ms": wall_ms, "device_busy_ms": summary["busy_ms"],
         "device_busy_share": summary["busy_ms"] / wall_ms,
         "kernel_launches": len(device),
-        "aten_calls": sum(a.count for a in ops if a.key.startswith("aten::")),
+        "aten_calls": sum(n for name, (n, _, _) in ops.items()
+                          if name.startswith("aten::")),
         "top_kernels_ms": {k["name"][:90]: k["ms"]
                            for k in summary["top_kernels"]},
-        "top_host_self_ms": {a.key[:70]: [a.count, a.self_cpu_time_total / 1e3]
-                             for a in top_host},
-        "allreduce_calls": {a.key[:70]: [a.count, a.cpu_time_total / 1e3]
-                            for a in calls},
+        "top_host_self_ms": {name[:70]: [n, self_ms]
+                             for name, (n, self_ms, _) in top_host},
+        "allreduce_calls": {name[:70]: [n, total_ms]
+                            for name, (n, _, total_ms) in ops.items()
+                            if "allreduce" in name.lower()},
         "nccl_kernels": len(nccl),
         "nccl_device_ms": summary["buckets_ms"].get("nccl", 0.0),
     }
@@ -1629,7 +1687,10 @@ def phase_trainer(torch, dev, root):
     constants.SAVED_MODELS_BASE_PATH = os.path.join(root, "models")
     constants.SAVED_META_INFO_PATH = os.path.join(root, "meta")
     torch.cuda.empty_cache()
-    trainer, snaps, seconds = run_trainer(torch, TRAINER_ARGV, dev)
+    drawn = []
+    with drawn_weights(drawn):
+        trainer, snaps, seconds = run_trainer(torch, TRAINER_ARGV, dev)
+    check_initial_weights("trainer", drawn)
     counts = kernel_counts()
     key = trainer.tracker.experiment_key
     epoch0_dir = os.path.dirname(trainer.ckpt.path(0))
@@ -2009,13 +2070,16 @@ def phase_finetune(torch, dev, pretrained, root):
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     reset_counts()
+    drawn = []
     t0 = time.perf_counter()
-    with launches_at_checkpoint(snaps), backbone_at_load(loaded):
+    with launches_at_checkpoint(snaps), backbone_at_load(loaded), \
+            drawn_weights(drawn):
         state, records = finetune_cli.main(FINETUNE_ARGV + [
             "-workdir", workdir, "-pretrained", pretrained, "--device",
             str(dev)])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
+    check_initial_weights("finetune", drawn)
     encoder = peclr_to_torchvision(model_state_dict(pretrained), "50")
     backbone = {k: v for k, v in loaded[0].items() if not k.startswith("fc.")}
     differ = tree_mismatches(encoder, backbone)
@@ -3461,6 +3525,473 @@ def phase_multichip(torch, dev):
     return {"weak": weak, "kernel_rows": rows}
 
 
+# --------------------------------------------------------------------------
+# phase 7b: repeatability on the card
+
+
+REPEAT_LAUNCHES = 20  # launches of each kernel case, each against the first
+RECIPE_LOAD_S = 300.0  # the most the concurrent recipe process runs
+RECIPE_LOAD_START_S = 300.0  # the most its first step may take to finish
+
+
+def repeat_cases(torch, dev):
+    """[(name, launch)] of kernels 1-4 at the recipe's shapes (2B = 256
+    canvases of 224² to 128² views): kernel 1 pass 1 and 2, kernel 2 (raw)
+    on pass 1's rows, kernel 3 pass 1, kernel 4 pass 1 with bf16 and with
+    f32 taps; each launch makes a new output from the same inputs."""
+    from peclr_tpu_torch.ops.shift_lerp import (
+        fused_shift_lerp,
+        fused_shift_lerp_grouped,
+    )
+    from peclr_tpu_torch.ops.shift_lerp_matmul import fused_shift_lerp_matmul
+
+    uniform, taps, rows_of, shifts = matmul_inputs(torch, dev, SEED + 40)
+    b = 2 * MICROBATCH
+    n1, n2 = b * 224, b * 128
+    pass1 = rows_of((3, n1, 224), torch.uint8)
+    pass2 = rows_of((3, n2, 224), torch.bfloat16)
+    flat1 = rows_of((n1, 224 * 3), torch.uint8)
+    k1, f1 = shifts(uniform(n1, -424.0, 264.0), 384, 224)
+    k2, f2 = shifts(uniform(n2, -296.0, 264.0), 256, 224)
+    area = taps(b, 384, 128, 1.0, 2.5, torch.float32)
+    bf16, f32 = torch.bfloat16, torch.float32
+    return [
+        ("kernel1_pass1_u8_to_bf16",
+         lambda: fused_shift_lerp_grouped(pass1, k1, f1, 384, bf16)),
+        ("kernel1_pass2_bf16_to_bf16",
+         lambda: fused_shift_lerp_grouped(pass2, k2, f2, 256, bf16)),
+        ("kernel2_raw_pass1_u8",
+         lambda: fused_shift_lerp_grouped(pass1, k1, None, 384, None, False)),
+        ("kernel3_pass1_u8_to_bf16",
+         lambda: fused_shift_lerp(flat1, k1, f1, 384 * 3, 3, bf16)),
+        ("kernel4_pass1_bf16_taps",
+         lambda: fused_shift_lerp_matmul(pass1.view(3, b, 224, 224), k1, f1,
+                                         area.to(bf16), bf16)),
+        ("kernel4_pass1_f32_taps",
+         lambda: fused_shift_lerp_matmul(pass1.view(3, b, 224, 224), k1, f1,
+                                         area, f32)),
+    ]
+
+
+def repeat_launches(torch, cases, reps: int = REPEAT_LAUNCHES) -> dict:
+    """Each case launched `reps` times back to back, then every output held
+    to the first bit for bit: {case: {launches, differing (outputs not
+    equal to the first), ms (the launches' wall, one wait at the end)}}."""
+    out = {}
+    for name, launch in cases:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = [launch() for _ in range(reps)]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        differing = sum(not torch.equal(o, outs[0]) for o in outs[1:])
+        out[name] = {"launches": reps, "differing": differing, "ms": ms}
+        del outs
+    return out
+
+
+def recipe_load(ready: str) -> int:
+    """`--recipe-load READY`: the RN50 recipe step (128 x 16, bf16, grouped
+    route) in a loop on the card, READY written once the first step is
+    done; ends after RECIPE_LOAD_S unless stopped before."""
+    import torch
+
+    from peclr_tpu_torch.config.defaults import (
+        AugmentationParams,
+        peclr_pretrain_flags,
+    )
+    from peclr_tpu_torch.device import resolve_device
+    from peclr_tpu_torch.train.recipe import (
+        build_pretrain_state,
+        synthetic_pretrain_batch,
+    )
+    from peclr_tpu_torch.train.step import make_peclr_train_step
+
+    dev = resolve_device("cuda")
+    model, state, opt = build_pretrain_state("50", batch=MICROBATCH,
+                                             accum=ACCUM, device=dev)
+    batch = synthetic_pretrain_batch(MICROBATCH * ACCUM, 224, SEED + 7,
+                                     device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    step = make_peclr_train_step(model, opt, peclr_pretrain_flags(),
+                                 AugmentationParams(), accum=ACCUM,
+                                 warp_route="grouped")
+    t0, steps = time.monotonic(), 0
+    while time.monotonic() - t0 < RECIPE_LOAD_S:
+        state, metrics = step(state, batch, gen)
+        steps += 1
+        if steps == 1:
+            loss = metrics["loss"].item()  # the first step is done
+            with open(ready + ".tmp", "w") as f:
+                f.write(f"{loss}\n")
+            os.replace(ready + ".tmp", ready)
+    print(f"recipe load: {steps} steps", flush=True)
+    return 0
+
+
+def under_recipe_load(run):
+    """run() while another process runs the RN50 recipe step on the same
+    card (this script re-entered with --recipe-load), started first and
+    waited for until its first step is done; the process is stopped after.
+    Returns (run()'s result, the first step's loss, the seconds it took to
+    start)."""
+    tmp = tempfile.mkdtemp(prefix="peclr_smoke_load_")
+    ready, log_path = os.path.join(tmp, "ready"), os.path.join(tmp, "log")
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--recipe-load",
+             ready], stdout=log, stderr=subprocess.STDOUT,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        t0 = time.perf_counter()
+        while not os.path.exists(ready):
+            if proc.poll() is not None or (
+                    time.perf_counter() - t0 > RECIPE_LOAD_START_S):
+                with open(log_path) as f:
+                    tail = f.read()[-3000:]
+                check(False, f"the recipe load did not start (exit "
+                      f"{proc.poll()}):\n{tail}")
+            time.sleep(0.2)
+        start_s = time.perf_counter() - t0
+        with open(ready) as f:
+            loss = float(f.read())
+        result = run()
+        check(proc.poll() is None, "the recipe load ended before the "
+              "launches under it did")
+        return result, loss, start_s
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def output_digest(torch, t):
+    """Two integer sums over the bits of `t` (its elements as integers of
+    their width, and their squares, in int64): equal for equal bits in any
+    order of summation, and moved by a change to any one element."""
+    x = t.detach().reshape(-1)
+    bits = {4: torch.int32, 2: torch.int16, 1: torch.uint8}[x.element_size()]
+    x = x.view(bits).to(torch.int64)
+    return torch.stack([x.sum(), (x * x).sum()])
+
+
+def step_once(torch, model, opt, state, step, batch, draws, snapshot):
+    """One step from `snapshot` (model and optimizer state) on `batch` with
+    `draws`: (loss, {parameter: gradient}, [(module, output digest)] in the
+    order the leaf modules ran)."""
+    model.load_state_dict(snapshot[0])
+    opt.load_state_dict(snapshot[1])
+    state.step = 0
+    digests = []
+    hooks = [module.register_forward_hook(
+        lambda m, i, o, name=name: digests.append(
+            (name, output_digest(torch, o))))
+        for name, module in model.named_modules()
+        if not list(module.children())]
+    try:
+        state, metrics = step(state, batch, None, draws=draws)
+    finally:
+        for hook in hooks:
+            hook.remove()
+    grads = {name: p.grad.detach().clone()
+             for name, p in model.named_parameters() if p.grad is not None}
+    return metrics["loss"].detach().clone(), grads, digests
+
+
+def compare_steps(torch, a, b) -> dict:
+    """Two step_once results bit for bit: the loss, each gradient (the
+    first that differs in the backward pass's order, which runs the
+    parameters from the last), the first leaf module whose forward output
+    differs."""
+    (loss_a, grads_a, dig_a), (loss_b, grads_b, dig_b) = a, b
+    differ = [name for name in grads_a
+              if not torch.equal(grads_a[name], grads_b[name])]
+    first_module = next((na for (na, da), (nb, db) in zip(dig_a, dig_b)
+                         if not torch.equal(da, db)), None)
+    return {
+        "loss_equal": bool(torch.equal(loss_a, loss_b)),
+        "loss": [loss_a.item(), loss_b.item()],
+        "gradients": len(grads_a), "gradients_differing": len(differ),
+        "first_differing_in_backward": differ[-1] if differ else None,
+        "max_abs_gradient_diff": max(
+            ((grads_a[n] - grads_b[n]).abs().max().item() for n in differ),
+            default=0.0),
+        "module_outputs": len(dig_a),
+        "first_module_output_differing": first_module,
+        "equal": bool(torch.equal(loss_a, loss_b)) and not differ
+        and first_module is None,
+    }
+
+
+def f32_step_repeat(torch, dev):
+    """The recipe step at precision="f32" (TF32 off) on the matmul route,
+    twice from the same state, batch and draws, after a warm-up: the loss,
+    every gradient and every leaf module's forward output compared bit for
+    bit.  Where they differ, again under torch.use_deterministic_algorithms
+    (warn only: the ops without a deterministic version are listed) and
+    cudnn.deterministic, set here only and restored after."""
+    import warnings
+
+    from peclr_tpu_torch.config.defaults import (
+        AugmentationParams,
+        peclr_pretrain_flags,
+    )
+    from peclr_tpu_torch.ops import augment
+    from peclr_tpu_torch.train.recipe import (
+        build_pretrain_state,
+        synthetic_pretrain_batch,
+    )
+    from peclr_tpu_torch.train.step import make_peclr_train_step
+
+    flags, params = peclr_pretrain_flags(), AugmentationParams()
+    model, state, opt = build_pretrain_state("50", batch=MICROBATCH,
+                                             accum=ACCUM, device=dev)
+    data = synthetic_pretrain_batch(MICROBATCH * ACCUM, 224, SEED + 7,
+                                    device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+    draws = [augment.draw(gen, 2 * MICROBATCH, flags, params)
+             for _ in range(ACCUM)]
+    snapshot = ({k: v.clone() for k, v in model.state_dict().items()},
+                copy.deepcopy(opt.state_dict()))
+    step = make_peclr_train_step(model, opt, flags, params, accum=ACCUM,
+                                 warp_route="matmul", precision="f32")
+    args = (torch, model, opt, state, step, data, draws, snapshot)
+    step_once(*args)  # the warm-up
+    out = {"default": compare_steps(torch, step_once(*args),
+                                    step_once(*args))}
+    if not out["default"]["equal"]:
+        cudnn = torch.backends.cudnn.deterministic
+        workspace = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        torch.backends.cudnn.deterministic = True
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                step_once(*args)  # the warm-up of the deterministic plans
+                out["deterministic"] = compare_steps(
+                    torch, step_once(*args), step_once(*args))
+            out["deterministic"]["nondeterministic_ops"] = sorted({
+                str(w.message).split(" does not have")[0][:120]
+                for w in caught if "deterministic" in str(w.message)})
+        finally:
+            torch.use_deterministic_algorithms(False)
+            torch.backends.cudnn.deterministic = cudnn
+            if workspace is None:
+                os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+            else:
+                os.environ["CUBLAS_WORKSPACE_CONFIG"] = workspace
+    del model, state, opt, data, snapshot, step
+    return out
+
+
+def repeat_finding(f32: dict) -> str:
+    """One sentence on the f32 step's repeatability."""
+    d = f32["default"]
+    if d["equal"]:
+        return (f"f32 matmul-route recipe step repeats to the bit: loss and "
+                f"all {d['gradients']} gradients and {d['module_outputs']} "
+                "module outputs equal")
+    said = (f"f32 matmul-route recipe step does not repeat: loss equal "
+            f"{d['loss_equal']}, {d['gradients_differing']} of "
+            f"{d['gradients']} gradients differ (first in the backward "
+            f"pass: {d['first_differing_in_backward']}, max "
+            f"{d['max_abs_gradient_diff']:.3g}), first forward output "
+            f"differing: {d['first_module_output_differing']}")
+    det = f32["deterministic"]
+    if det["equal"]:
+        return said + ("; under deterministic algorithms and cuDNN it "
+                       "repeats to the bit: the nondeterminism is the "
+                       "library's algorithms, not the kernels (bit-equal "
+                       "over their launches)")
+    return said + (f"; under deterministic algorithms it still differs: "
+                   f"{det['gradients_differing']} gradients, first forward "
+                   f"output {det['first_module_output_differing']}, ops "
+                   f"without a deterministic version "
+                   f"{det['nondeterministic_ops']}")
+
+
+def phase_repeat(torch, dev):
+    """Kernels 1-4 at the recipe's shapes, each launched REPEAT_LAUNCHES
+    times, every output bit-equal to the first: alone, then while another
+    process runs the RN50 recipe step on the card; then the f32 recipe
+    step's repeatability (f32_step_repeat) and its finding on a line of
+    its own."""
+    t_phase = time.perf_counter()
+    cases = repeat_cases(torch, dev)
+    alone = repeat_launches(torch, cases)
+    loaded, load_loss, load_start_s = under_recipe_load(
+        lambda: repeat_launches(torch, cases))
+    del cases
+    torch.cuda.empty_cache()
+    for when, runs in (("alone", alone), ("under the recipe load", loaded)):
+        for name, run in runs.items():
+            check(run["differing"] == 0, f"repeat {name} {when}: "
+                  f"{run['differing']} of {run['launches'] - 1} outputs "
+                  "differ from the first launch's")
+    f32 = f32_step_repeat(torch, dev)
+    torch.cuda.empty_cache()
+    finding = repeat_finding(f32)
+    emit("repeat", launches_per_case=REPEAT_LAUNCHES, alone=alone,
+         under_recipe_load=loaded, recipe_load_first_loss=load_loss,
+         recipe_load_start_s=load_start_s, f32_step=f32,
+         phase_seconds=time.perf_counter() - t_phase)
+    emit("repeat_finding", finding=finding)
+    return f32
+
+
+# --------------------------------------------------------------------------
+# phase 8/9: the initial weights the trainer and the fine-tune CLI draw
+
+
+def initial_weight_stats(model) -> dict:
+    """The stem's standard deviation and the first dense layer's against
+    the reference's (He-normal on fan_out, lecun-normal on fan_in), and the
+    largest bias of a convolution or dense layer (0 in the reference)."""
+    from torch import nn
+
+    stem = next(m for m in model.modules()
+                if isinstance(m, nn.Conv2d) and m.kernel_size == (7, 7))
+    fc_name, fc = next((n, m) for n, m in model.named_modules()
+                       if isinstance(m, nn.Linear))
+    biases = [m.bias for m in model.modules()
+              if isinstance(m, (nn.Conv2d, nn.Linear)) and m.bias is not None]
+    return {
+        "stem_std": stem.weight.std().item(),
+        "stem_std_reference": math.sqrt(2.0 / (stem.out_channels * 49)),
+        "fc": fc_name, "fc_std": fc.weight.std().item(),
+        "fc_std_reference": 1.0 / math.sqrt(fc.in_features),
+        "max_abs_bias": max(b.abs().max().item() for b in biases),
+        "max_abs_bias_reference": 0.0,
+    }
+
+
+@contextlib.contextmanager
+def drawn_weights(stats: list):
+    """Record initial_weight_stats of each model drawn by init_as_reference
+    (the trainer reads it from train/loop.py, the fine-tune CLI from
+    models/init.py), as it is drawn."""
+    from peclr_tpu_torch.models import init
+    from peclr_tpu_torch.train import loop
+
+    real = init.init_as_reference
+
+    def draw(model, seed):
+        out = real(model, seed)
+        stats.append(initial_weight_stats(out))
+        return out
+
+    init.init_as_reference = loop.init_as_reference = draw
+    try:
+        yield
+    finally:
+        init.init_as_reference = loop.init_as_reference = real
+
+
+def check_initial_weights(what: str, stats: list) -> None:
+    """Each drawn model's stem and first dense layer within 5% of the
+    reference's standard deviation (a few thousand weights or more: the
+    sample's own error is under 1.5%), every bias exactly 0; one line."""
+    check(bool(stats), f"{what}: no model drawn by init_as_reference")
+    for s in stats:
+        for key in ("stem_std", "fc_std"):
+            rel = abs(s[key] / s[key + "_reference"] - 1.0)
+            check(rel < 0.05, f"{what}: {key} {s[key]} against the "
+                  f"reference's {s[key + '_reference']}")
+        check(s["max_abs_bias"] == 0.0, f"{what}: a bias of "
+              f"{s['max_abs_bias']}, the reference's are 0")
+    emit(what + "_initial_weights", models=stats, tolerance_rel=0.05)
+
+
+# --------------------------------------------------------------------------
+# phase 12c: the entry point; 12d: the perf guard
+
+
+#: entry()'s bf16 projection on the card against the same model's f32
+#: projection on the CPU, over the largest f32 value (0.6% on the CPU's own
+#: bf16 autocast)
+ENTRY_TOL = 5e-2
+
+
+def phase_entry(torch, dev):
+    """peclr_tpu_torch.entry.entry(): the RN50 projection of its example
+    (8 x 128² zeros) on the card under bf16 autocast: shape (8, 128),
+    float32, finite, no host wait (after one warm-up call); its ms; and on
+    seeded images (the example's projection is 0: zero biases, BatchNorm at
+    its initial statistics) within ENTRY_TOL of the CPU's f32."""
+    from peclr_tpu_torch.entry import entry
+    from peclr_tpu_torch.scripts import host_waits
+
+    fn, args = entry()
+    model, images = args
+    check(images.is_cuda and next(model.parameters()).is_cuda,
+          "entry: the example is not on the card")
+    fn(*args)
+    waits = host_waits(lambda: fn(*args))
+    out = fn(*args)
+    torch.cuda.synchronize()
+    check(out.is_cuda and tuple(out.shape) == (8, 128)
+          and out.dtype == torch.float32, f"entry: output {out.shape} "
+          f"{out.dtype} on {out.device}")
+    check(bool(torch.isfinite(out).all()), "entry: projection not finite")
+    check(not waits, f"entry: the host waited on the card at {waits}")
+    x = torch.from_numpy(np.random.default_rng(SEED + 50).standard_normal(
+        tuple(images.shape)).astype(np.float32))
+    got = fn(model, x.to(dev)).cpu()
+    want = fn(copy.deepcopy(model).cpu(), x)
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    check(rel <= ENTRY_TOL, f"entry: card bf16 against CPU f32 {rel} > "
+          f"{ENTRY_TOL}")
+    emit("entry", shape=list(out.shape), dtype=str(out.dtype),
+         host_waits=len(waits), ms=cuda_ms(lambda: fn(*args), 20),
+         example_projection_abs_max=out.abs().max().item(),
+         seeded_card_bf16_vs_cpu_f32=rel, tolerance=ENTRY_TOL)
+
+
+def phase_bench_guard(torch, dev):
+    """scripts/bench_guard.py's four phases cut to 2 iterations and one
+    window, its artifact into a temporary directory: every rate and ms
+    finite and positive, busy ms measured for finetune and pred, kernel 1
+    launched 32 a recipe step, 2 a fine-tune step and 4 a two-pass batch
+    (profile_step's warm-up and the profiled window included), kernels 2-4
+    never.  The band verdict is printed, not checked: a cut run is noise."""
+    from peclr_tpu_torch.scripts import bench_guard, profile_step
+
+    iters = 2
+    tmp = tempfile.mkdtemp(prefix="peclr_smoke_guard_")
+    try:
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        record = bench_guard.main(["--iters", str(iters), "--windows", "1",
+                                   "--out", os.path.join(tmp, "guard.json")])
+        seconds = time.perf_counter() - t0
+        counts = kernel_counts()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for name, p in record["phases"].items():
+        keys = ["img_per_sec", "ms_per_step"] + (
+            ["trace_busy_ms", "wall_ms"] if name in bench_guard.PROFILED
+            else [])
+        for key in keys:
+            value = p[key]
+            check(value is not None and math.isfinite(value) and value > 0,
+                  f"bench_guard {name}: {key} = {value}")
+    runs = profile_step.WARMUP + iters  # a timed window's calls
+    want = {"shift_lerp_grouped": 2 * 2 * ACCUM * runs
+            + (2 + 4) * (runs + iters)}
+    for kname, launched in counts.items():
+        check(launched == want.get(kname, 0), f"bench_guard: {kname} "
+              f"launched {launched} times, want {want.get(kname, 0)}")
+    emit("bench_guard", seconds=seconds, launches=counts,
+         verdict={n: p["pass"] for n, p in record["phases"].items()},
+         verdict_checked=False, record=record)
+
+
 def main() -> int:
     global CARD
     try:
@@ -3702,6 +4233,8 @@ def main() -> int:
     phase_pretrain_vs_cpu(torch, dev)
     # ---- 7a. the recipe step in f32 through kernel 4's f32 taps -----------------
     f32_runs = phase_pretrain_f32_matmul(torch, dev)
+    # ---- 7b. repeatability: the kernels alone and under load, the f32 step ------
+    phase_repeat(torch, dev)
 
     # ---- 8. the trainer through its CLI; 9. fine-tune and evaluate from its
     # checkpoint --------------------------------------------------------------------
@@ -3724,6 +4257,9 @@ def main() -> int:
     weak_launches = {route: multichip_run["weak"]["routes"][route][
         "launches_per_step_per_rank"][0][ROUTE_KERNEL[route]]
         for route in PRETRAIN_ROUTES}
+    # ---- 12c. the entry point; 12d. the perf guard, cut ----------------------------
+    phase_entry(torch, dev)
+    phase_bench_guard(torch, dev)
 
     # ---- 13. kernels line --------------------------------------------------------
     def summary(name, source, replaces, launches, rows, timed_case, **extra):
@@ -3960,4 +4496,6 @@ if __name__ == "__main__":
         sys.exit(ddp_cli_rank(sys.argv[2], sys.argv[3:]))
     if sys.argv[1:2] == ["--turns"]:  # parent against change, in turns
         sys.exit(turns_main())
+    if sys.argv[1:2] == ["--recipe-load"]:  # the repeat phase's load
+        sys.exit(recipe_load(sys.argv[2]))
     sys.exit(main())

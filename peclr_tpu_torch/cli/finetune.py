@@ -68,6 +68,22 @@ def load_pretrained_state(path: str):
     return load_torch_checkpoint(path)
 
 
+def initial_model(resnet_size: str, seed: int, pretrained: str = ""):
+    """The RN25DPose a run starts from: every weight drawn from `seed` as the
+    reference's `model.init` draws them (models/init.py), then, where
+    `pretrained` names a PeCLR checkpoint, the backbone but fc loaded from
+    its encoder (fc and the z-root MLP keep the draw)."""
+    from peclr_tpu_torch.models import RN25DPose
+    from peclr_tpu_torch.models.init import init_as_reference
+    from peclr_tpu_torch.train import finetune
+
+    model = init_as_reference(RN25DPose(size=resnet_size), seed)
+    if pretrained:
+        finetune.load_pretrained_encoder(model,
+                                         load_pretrained_state(pretrained))
+    return model
+
+
 def main(argv=None):
     """Fine-tune as the flags say.  Returns (state, per-epoch records)."""
     import torch
@@ -84,7 +100,6 @@ def main(argv=None):
         device_prefetch,
     )
     from peclr_tpu_torch.device import resolve_device
-    from peclr_tpu_torch.models import RN25DPose
     from peclr_tpu_torch.train import finetune
     from peclr_tpu_torch.train.checkpoint import CheckpointManager
     from peclr_tpu_torch.train.loop import stream_generator
@@ -102,12 +117,8 @@ def main(argv=None):
                         seed=args.seed, num_threads=args.num_workers)
     steps = args.steps_per_epoch or pipe.steps_per_epoch()
 
-    with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(args.seed)
-        model = RN25DPose(size=args.resnet_size)
+    model = initial_model(args.resnet_size, args.seed, args.pretrained)
     if args.pretrained:
-        finetune.load_pretrained_encoder(
-            model, load_pretrained_state(args.pretrained))
         log.info(f"initialized backbone from {args.pretrained}")
     model.to(dev)
 

@@ -124,19 +124,26 @@ def spawn(fn: Callable, world: int, args: Sequence = (), device=None,
     return out
 
 
+def dryrun_model(device):
+    """The dry run's RN18 PeCLR model on `device`, its weights drawn from
+    seed 0 as the reference's `model.init` draws them."""
+    from peclr_tpu_torch.models import PeCLRModel
+    from peclr_tpu_torch.models.init import init_as_reference
+
+    return init_as_reference(PeCLRModel("18"), 0).to(device)
+
+
 def _dryrun_rank(mesh):
     from peclr_tpu_torch.config.defaults import (
         AugmentationParams,
         peclr_pretrain_flags,
     )
-    from peclr_tpu_torch.models import PeCLRModel
     from peclr_tpu_torch.parallel.mesh import replicated, shard_batch
     from peclr_tpu_torch.train.optimizer import build_optimizer
     from peclr_tpu_torch.train.state import TrainState
     from peclr_tpu_torch.train.step import make_peclr_train_step
 
-    torch.manual_seed(0)
-    model = replicated(mesh, PeCLRModel("18").to(mesh.device))
+    model = replicated(mesh, dryrun_model(mesh.device))
     opt, _ = build_optimizer(model, base_lr=1e-4, batch_size=2 * mesh.size,
                              accum=2, steps_per_epoch=4, epochs=2,
                              warmup_epochs=1)

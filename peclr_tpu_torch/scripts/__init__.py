@@ -12,12 +12,12 @@ scripts/ of the same names:
     python -m peclr_tpu_torch.scripts.bench_multichip [...]
     python -m peclr_tpu_torch.scripts.multihost_harness [...]
     python -m peclr_tpu_torch.scripts.bench_streams [...]
+    python -m peclr_tpu_torch.scripts.bench_guard [...]
 
 Each runs on the card unless given `--device cpu`.  The accuracy
 harnesses write their artifacts under tests/fixtures/torch_accuracy/, the
 measurement scripts under tests/fixtures/torch_bench/.  This module holds
-what they share: the reference's initial weights (their distribution: the
-flax defaults), the card's name for the records, the step loop, the
+what they share: the card's name for the records, the step loop, the
 timed window that ends in the one wait on the card, and the count of the
 host's waits inside such a window.
 """
@@ -25,58 +25,20 @@ host's waits inside such a window.
 from __future__ import annotations
 
 import json
-import math
 import os
 import subprocess
 import time
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
-from torch import nn
+
+# the accuracy scripts' name for it, kept importable from here
+from peclr_tpu_torch.models.init import init_as_reference  # noqa: F401
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 ARTIFACT_DIR = os.path.join(REPO_ROOT, "tests", "fixtures", "torch_accuracy")
 BENCH_DIR = os.path.join(REPO_ROOT, "tests", "fixtures", "torch_bench")
-
-#: flax's truncated normal: a unit normal cut at +-2 has this standard
-#: deviation, so variance_scaling divides it out
-_TRUNC_STD = 0.87962566103423978
-
-
-def _variance_scaling_(weight: torch.Tensor, scale: float, fan: int,
-                       generator: torch.Generator) -> None:
-    std = math.sqrt(scale / fan) / _TRUNC_STD
-    nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std,
-                          generator=generator)
-
-
-@torch.no_grad()
-def init_as_reference(model: nn.Module, seed: int) -> nn.Module:
-    """Re-draw the model's weights from `seed` with the distributions of the
-    reference's `model.init` (flax's defaults): convolutions and dense
-    layers lecun-normal (truncated, variance 1 / fan_in), the ResNet stem
-    He-normal on fan_out (variance 2 / fan_out), zero biases, BatchNorm
-    scale 1, bias 0, running mean 0 and variance 1.  The numbers are
-    torch's, not jax.random's.  Returns the model."""
-    gen = torch.Generator().manual_seed(seed)
-    for name, module in model.named_modules():
-        if isinstance(module, nn.Conv2d):
-            w = module.weight
-            o, i, kh, kw = w.shape
-            stem = kh == 7  # the 7x7 stem conv of every ResNet
-            _variance_scaling_(w, 2.0 if stem else 1.0,
-                               o * kh * kw if stem else i * kh * kw, gen)
-        elif isinstance(module, nn.Linear):
-            _variance_scaling_(module.weight, 1.0, module.in_features, gen)
-        elif isinstance(module, nn.modules.batchnorm._BatchNorm):
-            module.reset_parameters()  # scale 1, bias 0, mean 0, var 1
-            continue
-        else:
-            continue
-        if getattr(module, "bias", None) is not None:
-            module.bias.zero_()
-    return model
 
 
 def card_name(device: torch.device) -> str:

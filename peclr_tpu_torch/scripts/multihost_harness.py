@@ -167,8 +167,9 @@ def worker(args):
     return record
 
 
-def single_process_reference(out_path=None, device="cpu"):
-    """The same program in one process, on the whole batch, no mesh."""
+def single_process_reference(out_path=None, device=None):
+    """The same program in one process, on the whole batch, no mesh, on
+    `device` (the card unless another is named)."""
     import torch
 
     from peclr_tpu_torch.device import resolve_device

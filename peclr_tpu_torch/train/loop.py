@@ -11,10 +11,10 @@ Randomness: torch cannot replay the reference's jax.random keys, so every
 generator is seeded by one formula, `stream_seed(a, b)`: the first 64-bit
 word of numpy's SeedSequence((a, b)).  Train step i of epoch e draws its
 augmentation from stream_seed(seed, e * steps_per_epoch + i), validation
-batch i of epoch e from stream_seed(1000 + e, i); the weights are made by
-torch's initialisers under torch.manual_seed(seed).  With the pipeline's
-order keyed by the epoch and checkpoints holding the model, the optimizer
-and the step, training interrupted at an epoch boundary and resumed is
+batch i of epoch e from stream_seed(1000 + e, i); the weights are drawn
+from `seed` with the distributions of the reference's `model.init`
+(models/init.py).  With the pipeline's order keyed by the epoch and
+checkpoints holding the model, the optimizer and the step, training interrupted at an epoch boundary and resumed is
 bit-equal to training straight through (on the CPU; the card's bf16
 backward is not bit-deterministic).  A mid-epoch interrupt resumes from the
 last completed epoch and replays the partial one.  Multi-source
@@ -51,6 +51,7 @@ from peclr_tpu_torch.data.pipeline import (
 )
 from peclr_tpu_torch.device import DeviceLike, resolve_device
 from peclr_tpu_torch.models import PeCLRModel
+from peclr_tpu_torch.models.init import init_as_reference
 from peclr_tpu_torch.parallel.mesh import Mesh, replicated
 from peclr_tpu_torch.train.checkpoint import CheckpointManager, save_experiment_key
 from peclr_tpu_torch.train.optimizer import build_optimizer
@@ -165,13 +166,11 @@ class PeCLRTrainer:
         )
 
         # ---- model + optimizer -------------------------------------------
-        with torch.random.fork_rng(devices=[]):
-            torch.manual_seed(train_cfg.seed)
-            model = PeCLRModel(
-                model_cfg.resnet_size,
-                projection_hidden_dim=model_cfg.projection_head_hidden_dim,
-                projection_dim=model_cfg.output_dim,
-            )
+        model = init_as_reference(PeCLRModel(
+            model_cfg.resnet_size,
+            projection_hidden_dim=model_cfg.projection_head_hidden_dim,
+            projection_dim=model_cfg.output_dim,
+        ), train_cfg.seed)
         self.model = model.to(self.device)
         accum = train_cfg.accumulate_grad_batches
         self.steps_per_epoch = max(

@@ -9,8 +9,9 @@ pipelining (bench_pred_pipeline), the host pipeline's balance
 step's device time by bucket (profile_step with trace_buckets; these
 replace the reference's hlo_stats_*.json.gz, whose layout is XLA's),
 weak scaling of the recipe step under DDP and the mesh-scaling table
-(bench_multichip), the two-process harness (multihost_harness) and the
-HBM stream rates (bench_streams).
+(bench_multichip), the two-process harness (multihost_harness), the
+HBM stream rates (bench_streams) and the perf guard's four phases
+(bench_guard).
 Each claim below is the reference's, beside the line of
 tests/test_bench_artifacts.py that makes it, with the card's own numbers
 where the reference compared with a TPU constant; the TPU's ms figures
@@ -50,6 +51,7 @@ COMMANDS = {
     "multichip_scaling": _RUN + "bench_multichip --scaling_table",
     "multihost_crossproc": _RUN + "multihost_harness",
     "stream_rates": _RUN + "bench_streams",
+    "bench_guard": _RUN + "bench_guard",
 }
 #: each profile artifact's variants
 VARIANTS = [("profile_pretrain", "full"), ("profile_finetune", "finetune"),
@@ -512,3 +514,39 @@ def test_stream_kernels_agree_with_their_plain_versions(rates):
         if key.endswith(":bn_res_relu_2r1w"):
             assert case["checked_with"].startswith("g ~ U(0.5, 1.5)"), key
     assert rates["host_waits_in_windows"] == 0
+
+
+# ---------------------------------------------------------------------------
+# the perf guard (TestBenchGuard, :491-563)
+
+
+@pytest.fixture(scope="module")
+def guard():
+    return _load("bench_guard")
+
+
+def test_guard_ran_on_the_card_and_all_phases_pass(guard):
+    """:524-531: the four phases re-measured on the card, each within its
+    band of the card's own reference."""
+    assert guard["backend"] == "cuda" and CARD.match(guard["device"])
+    assert guard["ok"] is True
+    assert set(guard["phases"]) == {
+        "pretrain_rn50", "pretrain_rn152", "finetune", "pred"}
+    for name, p in guard["phases"].items():
+        assert p["pass"] and p["ratio"] >= p["band"], (name, p)
+
+
+def test_guard_references_are_the_script_s(guard):
+    """:533-551, the card's constants where the reference pinned the TPU's
+    (REFERENCE: a first full run's img/s, the bands from runs in turns,
+    PERF.md); the wall of finetune and pred never below their busy time.
+    The reference's freshness test (:553-563) has no counterpart: a stale
+    artifact does not fail here (`bench_guard --check` reports it;
+    ROADMAP's deliberate differences)."""
+    from peclr_tpu_torch.scripts.bench_guard import REFERENCE
+
+    for name, p in guard["phases"].items():
+        assert p["reference_img_per_sec"] == REFERENCE[name]["img_s"], name
+        assert p["band"] == REFERENCE[name]["band"], name
+    for name in ("finetune", "pred"):
+        assert guard["phases"][name]["implied_gap_ms"] > -1.0, name

@@ -165,6 +165,14 @@ def test_harness_end_to_end(tmp_path):
     assert out.exists()
 
 
+def test_single_process_reference_defaults_to_the_card(monkeypatch):
+    """Without a device it asks for the card (resolve_device), and there is
+    none here."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        multihost_harness.single_process_reference()
+
+
 def test_harness_batch_is_the_reference_s():
     ref = _reference_module("multihost_harness")
     for name in ("GLOBAL_BATCH", "ACCUM", "CANVAS", "VIEW", "STEPS"):

@@ -3,9 +3,11 @@ reorders and MIDDLE_PIP, rotation_matrix_2d, error_in_conversion,
 pseudo_joint_bound, read_yaml, and constants.py's BASE_DIR and FreiHAND
 sizes), and a diff of every public name of the two packages: each
 top-level function, class and constant of a module of peclr_tpu, and of
-the reference's scripts that the port carries (SCRIPTS), has a
-counterpart in the port's module of the same path, or stands on the
-written list of deliberate differences below."""
+the reference's scripts that the port carries (SCRIPTS), and of the
+reference's entry points (__graft_entry__.py, ENTRY), has a counterpart in
+the port's module of the same path (peclr_tpu_torch/entry.py for the
+entry points), or stands on the written list of deliberate differences
+below."""
 
 import ast
 import os
@@ -32,7 +34,11 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPTS = ("accuracy_proxy.py", "downstream_chain.py", "trace_buckets.py",
            "profile_step.py", "bench_serving.py", "bench_decode.py",
            "bench_host_pipeline.py", "bench_pred_pipeline.py",
-           "bench_multichip.py", "multihost_harness.py", "bench_streams.py")
+           "bench_multichip.py", "multihost_harness.py", "bench_streams.py",
+           "bench_guard.py")
+#: the reference's entry points and the port's module that mirrors
+#: them (entry, and dryrun_multichip re-exported from parallel/dryrun.py)
+ENTRY = ("__graft_entry__.py", "peclr_tpu_torch/entry.py")
 
 #: reference names the port does not have, each with what covers it: JAX-
 #: or TPU-only names, and names whose job the port does another way.  "*"
@@ -117,6 +123,19 @@ def _public_names(path):
     return {n for n in out if not n.startswith("_")}
 
 
+def _exported(path):
+    """The names a module lists in its `__all__` (a re-export counts as
+    the module's own)."""
+    with open(path) as fh:
+        tree = ast.parse(fh.read())
+    for node in tree.body:
+        if (isinstance(node, ast.Assign)
+                and any(isinstance(t, ast.Name) and t.id == "__all__"
+                        for t in node.targets)):
+            return set(ast.literal_eval(node.value))
+    return set()
+
+
 def _module_pairs():
     pairs = []
     for root, _, files in os.walk(os.path.join(REPO, "peclr_tpu")):
@@ -126,6 +145,7 @@ def _module_pairs():
                 pairs.append((rel, "peclr_tpu_torch" + rel[len("peclr_tpu"):]))
     for name in SCRIPTS:
         pairs.append((f"scripts/{name}", f"peclr_tpu_torch/scripts/{name}"))
+    pairs.append(ENTRY)
     return sorted(pairs)
 
 
@@ -138,7 +158,8 @@ def test_every_public_name_has_a_counterpart():
             continue
         want = _public_names(os.path.join(REPO, ref_path))
         port = os.path.join(REPO, port_path)
-        have = _public_names(port) if os.path.exists(port) else set()
+        have = (_public_names(port) | _exported(port)
+                if os.path.exists(port) else set())
         missing += [f"{ref_path}:{n}" for n in sorted(want - have - set(listed))]
     assert not missing, missing
 
