@@ -95,6 +95,22 @@ one JSON line that carries the card's name and power limit:
               they differ, again under torch.use_deterministic_algorithms
               and cudnn.deterministic (set here only, restored after); the
               finding on a line of its own (repeat_finding)
+  7c. poison  every kernel's output independent of what its buffers held:
+              the repeat phase's recipe cases, ragged ones (odd row counts,
+              rows and outputs off the 16-byte vector, kernel 4 with a bf16
+              source, four planes, R = 97, M = 77, U = 131), the band pass
+              alone and the four stream ops (bench_streams' shape and a
+              ragged one, bf16 and f32), each launched as it is and then
+              after the caching allocator's free blocks of the sizes it
+              allocates were filled with 0x00, 0xFF (NaN in bf16 and f32, -1
+              in the band scratch) and 0xA5: every buffer the wrapper
+              allocates comes from the filled blocks, no filled byte
+              outside them changes (a write past a buffer), the four
+              outputs are equal to the bit, and the first holds to the
+              plain version (bit for bit; kernel 4 within 1.0 in bf16 and
+              1e-2 in f32, stats within 1e-6 of the float64 sums).
+              python3 chip_smoke.py --poison runs the build and this
+              phase alone
   8. trainer  first the host's JPEG codecs (the port's pool, which must be
               the decoder and link no libjpeg, cv2, PIL, the host's
               libjpeg), then the pretraining CLI (peclr_tpu_torch.cli.train)
@@ -227,7 +243,11 @@ one JSON line that carries the card's name and power limit:
               and one window: every rate, ms and busy ms finite and
               positive, kernel 1's launches counted, kernels 2-4 none; the
               band verdict printed, not checked
- 13. kernels  one line listing every ported kernel and the stream kernels
+ 13. kernels  one line listing every ported kernel and the stream kernels,
+              each with its poison result (7c) and "sanitizer": null: the
+              CUDA toolkit's compute-sanitizer (2025.2.1, in
+              /usr/local/cuda/bin) refuses the card's host ("Device not
+              supported"; PERF.md), so no phase runs it
 Then the card's nvidia-smi line, and last the contract line
 {"ok": true, "device": {...}}.  No weights are read (they are made from a
 seed); the only data read is the trainer's fixture.
@@ -304,6 +324,14 @@ DDP_CLI_TIMEOUT_S = 600
 #: this last one profiled, so that epochs 0 and 1 compare unprofiled
 DDP_CLI_PROFILED_EPOCH = 2
 CARD = ""
+
+
+def card_line() -> str:
+    """nvidia-smi's name and power limit of the first card."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
 
 
 def emit(phase: str, **fields) -> None:
@@ -3535,15 +3563,21 @@ RECIPE_LOAD_START_S = 300.0  # the most its first step may take to finish
 
 
 def repeat_cases(torch, dev):
-    """[(name, launch)] of kernels 1-4 at the recipe's shapes (2B = 256
-    canvases of 224² to 128² views): kernel 1 pass 1 and 2, kernel 2 (raw)
-    on pass 1's rows, kernel 3 pass 1, kernel 4 pass 1 with bf16 and with
-    f32 taps; each launch makes a new output from the same inputs."""
+    """[(name, launch, plain)] of kernels 1-4 at the recipe's shapes (2B =
+    256 canvases of 224² to 128² views): kernel 1 pass 1 and 2, kernel 2
+    (raw) on pass 1's rows, kernel 3 pass 1, kernel 4 pass 1 with bf16 and
+    with f32 taps; each launch makes a new output from the same inputs, and
+    plain() the plain version's on the card."""
     from peclr_tpu_torch.ops.shift_lerp import (
         fused_shift_lerp,
         fused_shift_lerp_grouped,
+        shift_lerp_flat_plain,
+        shift_lerp_grouped_plain,
     )
-    from peclr_tpu_torch.ops.shift_lerp_matmul import fused_shift_lerp_matmul
+    from peclr_tpu_torch.ops.shift_lerp_matmul import (
+        fused_shift_lerp_matmul,
+        shift_lerp_matmul_plain,
+    )
 
     uniform, taps, rows_of, shifts = matmul_inputs(torch, dev, SEED + 40)
     b = 2 * MICROBATCH
@@ -3555,21 +3589,27 @@ def repeat_cases(torch, dev):
     k2, f2 = shifts(uniform(n2, -296.0, 264.0), 256, 224)
     area = taps(b, 384, 128, 1.0, 2.5, torch.float32)
     bf16, f32 = torch.bfloat16, torch.float32
+    area16 = area.to(bf16)
+    rows4 = pass1.view(3, b, 224, 224)
     return [
         ("kernel1_pass1_u8_to_bf16",
-         lambda: fused_shift_lerp_grouped(pass1, k1, f1, 384, bf16)),
+         lambda: fused_shift_lerp_grouped(pass1, k1, f1, 384, bf16),
+         lambda: shift_lerp_grouped_plain(pass1, k1, f1, 384, bf16)),
         ("kernel1_pass2_bf16_to_bf16",
-         lambda: fused_shift_lerp_grouped(pass2, k2, f2, 256, bf16)),
+         lambda: fused_shift_lerp_grouped(pass2, k2, f2, 256, bf16),
+         lambda: shift_lerp_grouped_plain(pass2, k2, f2, 256, bf16)),
         ("kernel2_raw_pass1_u8",
-         lambda: fused_shift_lerp_grouped(pass1, k1, None, 384, None, False)),
+         lambda: fused_shift_lerp_grouped(pass1, k1, None, 384, None, False),
+         lambda: shift_lerp_grouped_plain(pass1, k1, None, 384, None, False)),
         ("kernel3_pass1_u8_to_bf16",
-         lambda: fused_shift_lerp(flat1, k1, f1, 384 * 3, 3, bf16)),
+         lambda: fused_shift_lerp(flat1, k1, f1, 384 * 3, 3, bf16),
+         lambda: shift_lerp_flat_plain(flat1, k1, f1, 384 * 3, 3, bf16)),
         ("kernel4_pass1_bf16_taps",
-         lambda: fused_shift_lerp_matmul(pass1.view(3, b, 224, 224), k1, f1,
-                                         area.to(bf16), bf16)),
+         lambda: fused_shift_lerp_matmul(rows4, k1, f1, area16, bf16),
+         lambda: shift_lerp_matmul_plain(rows4, k1, f1, area16, bf16)),
         ("kernel4_pass1_f32_taps",
-         lambda: fused_shift_lerp_matmul(pass1.view(3, b, 224, 224), k1, f1,
-                                         area, f32)),
+         lambda: fused_shift_lerp_matmul(rows4, k1, f1, area, f32),
+         lambda: shift_lerp_matmul_plain(rows4, k1, f1, area, f32)),
     ]
 
 
@@ -3578,7 +3618,7 @@ def repeat_launches(torch, cases, reps: int = REPEAT_LAUNCHES) -> dict:
     to the first bit for bit: {case: {launches, differing (outputs not
     equal to the first), ms (the launches' wall, one wait at the end)}}."""
     out = {}
-    for name, launch in cases:
+    for name, launch, _plain in cases:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         outs = [launch() for _ in range(reps)]
@@ -3845,6 +3885,334 @@ def phase_repeat(torch, dev):
 
 
 # --------------------------------------------------------------------------
+# phase 7c: poisoned buffers
+
+
+#: the bytes the allocator's free blocks are filled with before a launch:
+#: 0xFF is NaN in bf16 and f32, -1 in kernel 4's int32 band and 255 in its
+#: flags
+POISON_BYTES = (0x00, 0xFF, 0xA5)
+#: blocks of each size a launch allocates that are filled before it: twice
+#: what the launch takes, and then as many again
+POISON_COPIES = 4
+#: kernel 4 against its plain version, by output type (the kernel phase's)
+MATMUL_TOL = {"torch.bfloat16": 1.0, "torch.float32": 1e-2}
+
+
+def ragged_cases(torch, dev):
+    """[(name, launch, plain)] at ragged shapes: odd row counts; rows and
+    outputs whose bytes are not a multiple of 16 (kernels 1-3's scalar
+    path) beside an odd row count on the 16-byte path; kernel 4 with a bf16
+    source (so with its non-finite flags), four planes (a partial plane
+    group), R = 97 (not a multiple of FLAG_ROWS), M = 77 (not a multiple of
+    either band tile), U = 131 (not a multiple of the 16-byte vector; dense
+    bf16 taps walk two segments of 128) and W = 221, with bf16 and with f32
+    taps; the band pass alone at the recipe's pass-1 taps and at the ragged
+    ones, of each type."""
+    from peclr_tpu_torch.ops.shift_lerp import (
+        fused_shift_lerp,
+        fused_shift_lerp_grouped,
+        shift_lerp_flat_plain,
+        shift_lerp_grouped_plain,
+    )
+    from peclr_tpu_torch.ops.shift_lerp_matmul import (
+        band_tile,
+        fused_shift_lerp_matmul,
+        shift_lerp_matmul_plain,
+        tap_band,
+        tap_band_plain,
+    )
+
+    uniform, taps, rows_of, shifts = matmul_inputs(torch, dev, SEED + 41)
+    bf16, f32, u8 = torch.bfloat16, torch.float32, torch.uint8
+    n = 1001
+    x224, x221 = rows_of((3, n, 224), u8), rows_of((3, n, 221), u8)
+    x131 = rows_of((3, 999, 131), bf16)
+    flat = rows_of((n, 221 * 3), u8)
+    k136, f136 = shifts(uniform(n, -140.0, 226.0), 136, 224)
+    k131, f131 = shifts(uniform(n, -135.0, 223.0), 131, 221)
+    k77, f77 = shifts(uniform(999, -81.0, 133.0), 77, 131)
+    cases = [
+        ("kernel1_ragged_vec16_u8_to_bf16",
+         lambda: fused_shift_lerp_grouped(x224, k136, f136, 136, bf16),
+         lambda: shift_lerp_grouped_plain(x224, k136, f136, 136, bf16)),
+        ("kernel1_ragged_scalar_u8_to_bf16",
+         lambda: fused_shift_lerp_grouped(x221, k131, f131, 131, bf16),
+         lambda: shift_lerp_grouped_plain(x221, k131, f131, 131, bf16)),
+        ("kernel1_ragged_scalar_bf16_to_f32",
+         lambda: fused_shift_lerp_grouped(x131, k77, f77, 77, f32),
+         lambda: shift_lerp_grouped_plain(x131, k77, f77, 77, f32)),
+        ("kernel2_raw_ragged_scalar_u8",
+         lambda: fused_shift_lerp_grouped(x221, k131, None, 131, None, False),
+         lambda: shift_lerp_grouped_plain(x221, k131, None, 131, None,
+                                          False)),
+        ("kernel3_ragged_scalar_u8_to_bf16",
+         lambda: fused_shift_lerp(flat, k131, f131, 131 * 3, 3, bf16),
+         lambda: shift_lerp_flat_plain(flat, k131, f131, 131 * 3, 3, bf16)),
+    ]
+    nb, r, w, u, m = 5, 97, 221, 131, 77
+    rows4 = rows_of((4, nb, r, w), bf16)
+    k4, f4 = shifts(uniform(nb * r, -(u + 9.0), w + 9.0), u, w)
+    dense = uniform((nb, m, u), 0.0, 1.0)  # every tap nonzero, rows sum to 1
+    dense = (dense / dense.sum(dim=2, keepdim=True)).to(bf16)
+    area = taps(nb, u, m, 1.0, 2.5, f32)
+    for name, w_t, out in (("kernel4_ragged_bf16_src_bf16_taps", dense, bf16),
+                           ("kernel4_ragged_bf16_src_f32_taps", area, f32)):
+        cases.append((
+            name,
+            lambda w_t=w_t, out=out: fused_shift_lerp_matmul(rows4, k4, f4,
+                                                             w_t, out),
+            lambda w_t=w_t, out=out: shift_lerp_matmul_plain(rows4, k4, f4,
+                                                             w_t, out)))
+    recipe = taps(2 * MICROBATCH, 384, 128, 1.0, 2.5, f32)
+    for name, w_t in (("tap_band_pass1_bf16", recipe.to(bf16)),
+                      ("tap_band_pass1_f32", recipe),
+                      ("tap_band_ragged_bf16", dense),
+                      ("tap_band_ragged_f32", area)):
+        cases.append((name, lambda w_t=w_t: tap_band(w_t),
+                      lambda w_t=w_t: tap_band_plain(w_t,
+                                                     band_tile(w_t.dtype))))
+    return cases
+
+
+#: the stream ops' shapes in phase 7c: bench_streams' SHAPE, then a ragged
+#: one whose element count leaves a tail past the last 16-byte vector and
+#: whose C is not a multiple of it (the scalar bn_res_relu and stats)
+STREAM_POISON_SHAPES = (("bench", (256, 32, 32, 256)),
+                        ("ragged", (7, 9, 11, 37)))
+
+
+def stream_cases(torch, dev, shapes=STREAM_POISON_SHAPES):
+    """[(name, launch, plain)] of the four stream ops of ops/streams.py, in
+    bf16 and in f32, at each of `shapes`.  bn_res_relu takes bench_streams'
+    checking g and b."""
+    from peclr_tpu_torch.ops import streams
+    from peclr_tpu_torch.scripts.bench_streams import check_scale_shift
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 42)
+    cases = []
+    for where, shape in shapes:
+        g, b = check_scale_shift(shape[-1], dev)
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+            r = torch.randn(shape, generator=gen, device=dev).to(dtype)
+            tag = f"{where}_{str(dtype).split('.')[-1]}"
+            cases += [
+                (f"stream_copy_{tag}", lambda x=x: streams.stream_copy(x),
+                 lambda x=x: streams.copy_plain(x)),
+                (f"stream_add_{tag}",
+                 lambda x=x, r=r: streams.stream_add(x, r),
+                 lambda x=x, r=r: streams.add_plain(x, r)),
+                (f"stream_bn_res_relu_{tag}",
+                 lambda x=x, r=r, g=g, b=b: streams.stream_bn_res_relu(
+                     x, r, g, b),
+                 lambda x=x, r=r, g=g, b=b: streams.bn_res_relu_plain(
+                     x, r, g, b)),
+                # stats' plain() hands back x, whose float64 sums hold it
+                (f"stream_stats_{tag}", lambda x=x: streams.stream_stats(x),
+                 lambda x=x: x),
+            ]
+    return cases
+
+
+@contextlib.contextmanager
+def recorded_allocations(torch, into: list):
+    """Record (address, bytes) of every CUDA tensor that torch.empty and
+    torch.empty_like make inside the context: the wrappers' outputs and
+    scratch."""
+    empty, empty_like = torch.empty, torch.empty_like
+
+    def record(t):
+        if t.is_cuda:
+            into.append((t.data_ptr(), t.untyped_storage().nbytes()))
+        return t
+
+    torch.empty = lambda *a, **k: record(empty(*a, **k))
+    torch.empty_like = lambda *a, **k: record(empty_like(*a, **k))
+    try:
+        yield
+    finally:
+        torch.empty, torch.empty_like = empty, empty_like
+
+
+def recorded_launch(torch, dev, name, launch, allocs: list):
+    """launch() with its buffers recorded into `allocs`; the case may make
+    no other allocation (the checks below would not cover it)."""
+    stat = "allocation.all.allocated"
+    before = torch.cuda.memory_stats(dev)[stat]
+    with recorded_allocations(torch, allocs):
+        out = launch()
+    made = torch.cuda.memory_stats(dev)[stat] - before
+    torch.cuda.synchronize(dev)
+    check(made == len(allocs), f"poison {name}: the launch made {made} "
+          f"allocations, {len(allocs)} of them the wrapper's buffers")
+    return out
+
+
+def poison_free_blocks(torch, dev, sizes, byte: int) -> list:
+    """Empty the caching allocator's cache, then take POISON_COPIES blocks
+    of each size (rounded up to the allocator's 512-byte blocks), fill them
+    with `byte` and free them all.  Freed, they merge back into the free
+    blocks they were cut from, so the allocator hands the next requests of
+    these sizes the blocks it handed these: filled ones.  Returns the
+    filled address ranges, merged: [(start, end)]."""
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    held = [torch.empty(-(-size // 512) * 512, dtype=torch.uint8,
+                        device=dev).fill_(byte)
+            for size in sizes for _ in range(POISON_COPIES)]
+    torch.cuda.synchronize(dev)
+    spans = sorted((t.data_ptr(), t.data_ptr() + t.numel()) for t in held)
+    del held
+    merged = []
+    for start, end in spans:
+        if merged and start <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], end)
+        else:
+            merged.append([start, end])
+    return merged
+
+
+def written_outside(torch, dev, sizes, byte: int, spans, keep) -> int:
+    """After a launch that followed poison_free_blocks: the bytes of the
+    filled ranges `spans` that no longer hold `byte`, outside the wrapper's
+    buffers `keep` ([(address, bytes)]).  POISON_COPIES blocks of each size
+    are taken from the allocator again (not filled), and each is read where
+    it lies in the filled ranges: a kernel that writes past its buffers
+    into a neighbouring block shows here."""
+    held = [torch.empty(-(-size // 512) * 512, dtype=torch.uint8, device=dev)
+            for size in sizes for _ in range(POISON_COPIES)]
+    changed = 0
+    for block in held:
+        p, n = block.data_ptr(), block.numel()
+        mask = torch.zeros(n, dtype=torch.bool, device=dev)
+        for start, end in spans:
+            if start < p + n and end > p:
+                mask[max(start, p) - p:min(end, p + n) - p] = True
+        for start, nbytes in keep:
+            if start < p + n and start + nbytes > p:
+                mask[max(start, p) - p:min(start + nbytes, p + n) - p] = False
+        changed += int(((block != byte) & mask).sum())
+    return changed
+
+
+def bits_of(torch, t):
+    """t's elements as integers of their width (NaN compares by its bits)."""
+    return t.reshape(-1).view(
+        {4: torch.int32, 2: torch.int16, 1: torch.uint8}[t.element_size()])
+
+
+def same_bits(torch, a, b) -> bool:
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and torch.equal(bits_of(torch, a), bits_of(torch, b)))
+
+
+def poison_case(torch, dev, name, launch, plain) -> dict:
+    """One case of phase 7c: launched once as it is, then once after each
+    of POISON_BYTES filled the allocator's free blocks of the sizes the
+    launch allocates; every output bit-equal to the first, every buffer the
+    wrapper allocated inside the filled ranges, no filled byte outside them
+    changed (written_outside), and the first output against
+    plain() (bit for bit for kernels 1-3, the band pass and the elementwise
+    stream ops; kernel 4 within MATMUL_TOL; stats within bench_streams'
+    STATS_TOL of the float64 sum)."""
+    from peclr_tpu_torch.scripts.bench_streams import STATS_TOL, _stats_err
+
+    t0 = time.perf_counter()
+    allocs = []
+    first = recorded_launch(torch, dev, name, launch, allocs)
+    path = None
+    if name.startswith(("kernel1", "kernel2", "kernel3")):
+        path = shift_paths()["flat" if name.startswith("kernel3")
+                             else "grouped"]
+        for want in ("vec16", "scalar"):
+            check(f"_{want}_" not in name or path == want,
+                  f"poison {name}: took the {path} path")
+    sizes = sorted({n for _, n in allocs}, reverse=True)
+    poisoned, differing, outside = [], [], []
+    for byte in POISON_BYTES:
+        spans = poison_free_blocks(torch, dev, sizes, byte)
+        got_allocs = []
+        got = recorded_launch(torch, dev, name, launch, got_allocs)
+        inside = sum(any(s <= p and p + n <= e for s, e in spans)
+                     for p, n in got_allocs)
+        poisoned.append(f"{inside}/{len(got_allocs)}")
+        outside.append(written_outside(torch, dev, sizes, byte, spans,
+                                       got_allocs))
+        check(len(got_allocs) == len(allocs) and inside == len(allocs),
+              f"poison {name} {byte:#04x}: {inside} of {len(got_allocs)} "
+              "buffers came from the filled blocks")
+        if not same_bits(torch, got, first):
+            differing.append(f"{byte:#04x}")
+        del got
+    row = {"case": name, "shape": list(first.shape),
+           "dtype": str(first.dtype), "path": path, "buffers": len(allocs),
+           "buffer_bytes": sum(n for _, n in allocs),
+           "poisoned_buffers": poisoned, "differing_patterns": differing,
+           "bytes_written_outside": outside}
+    ref = plain()
+    if name.startswith("stream_stats"):
+        row["max_rel_err_f64"], row["max_abs_err"] = _stats_err(first, ref)
+        row["tolerance"] = STATS_TOL
+        ok = row["max_rel_err_f64"] <= STATS_TOL
+    elif name.startswith("kernel4"):
+        row["max_abs_err"] = (first.float() - ref.float()).abs().max().item()
+        row["tolerance"] = MATMUL_TOL[str(first.dtype)]
+        ok = (row["max_abs_err"] <= row["tolerance"]
+              and bool(torch.isfinite(first).all()))
+    else:
+        ok = same_bits(torch, first, ref)
+        row["max_abs_err"] = (0.0 if ok else
+                              (first.float() - ref.float()).abs().max().item())
+        row["tolerance"] = 0.0
+    check(not differing, f"poison {name}: the output after filling with "
+          f"{differing} differs from the unpoisoned one: the kernel reads or "
+          "leaves memory it does not own")
+    check(not any(outside), f"poison {name}: {outside} bytes of the filled "
+          "blocks outside its buffers changed: the kernel writes past them")
+    check(ok, f"poison {name}: against its plain version {row}")
+    row["seconds"] = time.perf_counter() - t0
+    return row
+
+
+#: the kernels line's row of each case, by the case's name
+POISON_KERNEL_OF = (
+    ("kernel1", "shift_lerp_grouped"), ("kernel2", "shift_raw_grouped"),
+    ("kernel3", "shift_lerp_flat"), ("kernel4", "shift_lerp_matmul"),
+    ("tap_band", "shift_lerp_matmul"), ("stream_copy", "stream_copy"),
+    ("stream_add", "stream_add"), ("stream_bn_res_relu", "stream_bn_res_relu"),
+    ("stream_stats", "stream_stats"))
+
+
+def phase_poison(torch, dev) -> dict:
+    """Each kernel's output independent of what its buffers held before
+    (module docstring, 7c): the repeat phase's recipe cases, the ragged
+    ones, the band pass alone and the four stream ops, each launched as it
+    is and after each of POISON_BYTES filled the allocator's free blocks.
+    Returns {kernels line row: {cases, bit_equal, patterns}}."""
+    t_phase = time.perf_counter()
+    rows = []
+    for source in (repeat_cases, ragged_cases, stream_cases):
+        cases = source(torch, dev)
+        rows += [poison_case(torch, dev, *case) for case in cases]
+        del cases
+        torch.cuda.empty_cache()
+    summary = {}
+    for row in rows:
+        kernel = next(k for prefix, k in POISON_KERNEL_OF
+                      if row["case"].startswith(prefix))
+        entry = summary.setdefault(kernel, {
+            "cases": 0, "bit_equal": True, "bytes_written_outside": 0,
+            "patterns": [f"{b:#04x}" for b in POISON_BYTES]})
+        entry["cases"] += 1
+        entry["bit_equal"] &= not row["differing_patterns"]
+        entry["bytes_written_outside"] += sum(row["bytes_written_outside"])
+    emit("poison", cases=rows, kernels=summary,
+         phase_seconds=time.perf_counter() - t_phase)
+    return summary
+
+
+# --------------------------------------------------------------------------
 # phase 8/9: the initial weights the trainer and the fine-tune CLI draw
 
 
@@ -4029,11 +4397,7 @@ def main() -> int:
     from peclr_tpu_torch.ops.warp_mxu import affine_warp_mxu
 
     t_start = time.perf_counter()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-    CARD = smi
+    smi = CARD = card_line()
     dev = resolve_device("cuda")
     emit("device", nvidia_smi=smi, kind=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__,
@@ -4235,6 +4599,8 @@ def main() -> int:
     f32_runs = phase_pretrain_f32_matmul(torch, dev)
     # ---- 7b. repeatability: the kernels alone and under load, the f32 step ------
     phase_repeat(torch, dev)
+    # ---- 7c. poisoned buffers ----------------------------------------------------
+    poison = phase_poison(torch, dev)
 
     # ---- 8. the trainer through its CLI; 9. fine-tune and evaluate from its
     # checkpoint --------------------------------------------------------------------
@@ -4376,6 +4742,10 @@ def main() -> int:
                 nonfinite_max_abs=max(r["max_abs"] for r in nonfinite_rows)),
         *multichip_run["kernel_rows"],
     ]
+    for row in kernels:
+        row["poison"] = poison[row["name"]]
+        # compute-sanitizer refuses this card's host (module docstring, 13)
+        row["sanitizer"] = None
     print(json.dumps({"kernels": kernels}), flush=True)
     emit("done", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)
@@ -4425,10 +4795,7 @@ def turns_main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
-    CARD = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    CARD = card_line()
     dev = resolve_device("cuda")
     tree = os.path.dirname(os.path.abspath(__file__))
     build.build(["shift_lerp", "shift_lerp_matmul"])
@@ -4491,7 +4858,28 @@ def turns_main() -> int:
     return 0
 
 
+def poison_main() -> int:
+    """`--poison`: the build and phase 7c alone; its line, then the card's
+    nvidia-smi line."""
+    import torch
+
+    from peclr_tpu_torch import build
+    from peclr_tpu_torch.device import resolve_device
+
+    global CARD
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    CARD = card_line()
+    build.build(["shift_lerp", "shift_lerp_matmul", "streams"])
+    phase_poison(torch, resolve_device("cuda"))
+    print(CARD, flush=True)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--poison"]:  # phase 7c alone
+        sys.exit(poison_main())
     if sys.argv[1:2] == ["--ddp-cli"]:  # a rank of the ddp phase's CLI run
         sys.exit(ddp_cli_rank(sys.argv[2], sys.argv[3:]))
     if sys.argv[1:2] == ["--turns"]:  # parent against change, in turns

@@ -24,9 +24,11 @@ from typing import Dict, Iterable, List
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
+#: -lineinfo maps the code to source lines for a tool that reports them (it
+#: leaves the generated code as it is)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-lineinfo", "-shared", "-Xcompiler", "-fPIC",
 )
 HOST_CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 

@@ -935,7 +935,9 @@ void Decoder::idct_block(const int16_t* coef, const int16_t* quant,
     // the two passes below, worked out for a lone DC: one flat value
     const int32_t d = wrap16(wrap16(coef[0] * quant[0]) * (1 << kPass1Bits));
     const int n = kConstBits + kPass1Bits + 3;
-    const int v = saturate(((d << kConstBits) + (1 << (n - 1))) >> n, -128, 127);
+    // d * 2**CONST_BITS, not d << CONST_BITS: d may be negative, whose
+    // left shift is undefined in C++17 (|d| < 2**15, so the product fits)
+    const int v = saturate((d * (1 << kConstBits) + (1 << (n - 1))) >> n, -128, 127);
     for (int r = 0; r < 8; ++r)
       std::memset(out + static_cast<size_t>(r) * stride, v + 128, 8);
     return;

@@ -1164,3 +1164,38 @@ def test_weak_scaling_f32_mesh_step_is_the_no_mesh_step(card, route,
     got = rec["routes"][route]
     assert rec["config"]["precision"] == "f32"
     assert abs(got["loss_step1"] / got["no_mesh"]["loss_step1"] - 1) <= 1e-6
+
+
+POISON_CASES = [
+    "kernel1_ragged_vec16_u8_to_bf16", "kernel1_ragged_scalar_u8_to_bf16",
+    "kernel2_raw_ragged_scalar_u8", "kernel3_ragged_scalar_u8_to_bf16",
+    "kernel4_ragged_bf16_src_bf16_taps", "kernel4_ragged_bf16_src_f32_taps",
+    "tap_band_ragged_bf16", "tap_band_ragged_f32",
+    "stream_copy_ragged_bfloat16", "stream_add_ragged_bfloat16",
+    "stream_bn_res_relu_ragged_bfloat16", "stream_stats_ragged_bfloat16"]
+
+
+@pytest.mark.parametrize("name", POISON_CASES)
+def test_poisoned_buffers_leave_the_output_unchanged(card, name):
+    """chip_smoke.py's poison check (phase 7c) on each kernel's ragged
+    case: launched as it is and after the allocator's free blocks were
+    filled with 0x00, 0xFF and 0xA5, every buffer the wrapper allocates
+    comes from the filled blocks, no filled byte outside them changes and
+    every output is the first to the bit; the first holds to the plain
+    version.  The check raises on a failure."""
+    import os
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if repo not in sys.path:
+        sys.path.insert(0, repo)
+    import chip_smoke
+
+    ragged = [s for s in chip_smoke.STREAM_POISON_SHAPES if s[0] == "ragged"]
+    cases = {n: (launch, plain) for n, launch, plain in
+             chip_smoke.ragged_cases(torch, card)
+             + chip_smoke.stream_cases(torch, card, ragged)}
+    row = chip_smoke.poison_case(torch, card, name, *cases[name])
+    assert row["differing_patterns"] == []
+    assert row["poisoned_buffers"] == [f"{row['buffers']}/{row['buffers']}"] * 3
+    assert row["bytes_written_outside"] == [0, 0, 0]
