@@ -243,6 +243,14 @@ one JSON line that carries the card's name and power limit:
               and one window: every rate, ms and busy ms finite and
               positive, kernel 1's launches counted, kernels 2-4 none; the
               band verdict printed, not checked
+ 12e. bench   python -m peclr_tpu_torch.bench (the port's bench.py) in a
+              subprocess at the RN50 recipe (grouped, the knobs' defaults:
+              3 windows of 6 steps) and at RN152 (one window of 2 steps):
+              exit 0, one stdout line of exactly the reference's keys
+              (metric, value, unit, vs_baseline, estimator), a finite
+              img/s > 0, vs_baseline null, the estimator string; its
+              stderr report with no host wait and kernel 1 launched 2 x
+              16 a step
  13. kernels  one line listing every ported kernel and the stream kernels,
               each with its poison result (7c) and "sanitizer": null: the
               CUDA toolkit's compute-sanitizer (2025.2.1, in
@@ -4360,6 +4368,62 @@ def phase_bench_guard(torch, dev):
          verdict_checked=False, record=record)
 
 
+#: the bench phase: `python -m peclr_tpu_torch.bench` at the RN50 recipe
+#: (grouped, the reference's knobs at their defaults), then at RN152 cut to
+#: one window of two steps; the keys of its stdout line, the reference's
+BENCH_RUNS = {"rn50": {},
+              "rn152": {"BENCH_RESNET": "152", "BENCH_ITERS": "2",
+                        "BENCH_WINDOWS": "1"}}
+BENCH_LINE_KEYS = ["metric", "value", "unit", "vs_baseline", "estimator"]
+BENCH_TIMEOUT_S = 300
+
+
+def phase_bench(torch, dev) -> dict:
+    """`python -m peclr_tpu_torch.bench` in a subprocess for each of
+    BENCH_RUNS: exit 0, one stdout line of exactly BENCH_LINE_KEYS with a
+    finite value > 0, vs_baseline null and the estimator of its windows;
+    its stderr report with no host wait and kernel 1 launched 2 x accum a
+    step (the bench checks the same and exits nonzero).  One line."""
+    from peclr_tpu_torch.bench import KNOBS
+
+    out = {}
+    torch.cuda.empty_cache()  # the bench's process needs the card's memory
+    for name, env in BENCH_RUNS.items():
+        knobs = {**KNOBS, **env}
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "peclr_tpu_torch.bench"],
+            env=dict(os.environ, **env), capture_output=True, text=True,
+            timeout=BENCH_TIMEOUT_S,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:], proc.stderr[-8000:], file=sys.stderr)
+        check(proc.returncode == 0, f"bench {name}: exited {proc.returncode}")
+        lines = proc.stdout.splitlines()
+        check(len(lines) == 1, f"bench {name}: {len(lines)} stdout lines")
+        line = json.loads(lines[-1])
+        check(list(line) == BENCH_LINE_KEYS, f"bench {name}: keys "
+              f"{list(line)}")
+        value = line["value"]
+        check(isinstance(value, float) and math.isfinite(value) and value > 0,
+              f"bench {name}: value {value}")
+        check(line["vs_baseline"] is None, f"bench {name}: vs_baseline "
+              f"{line['vs_baseline']}")
+        want = (f"min_of_{knobs['BENCH_WINDOWS']}_windows_x_"
+                f"{knobs['BENCH_ITERS']}_iters")
+        check(line["estimator"] == want, f"bench {name}: estimator "
+              f"{line['estimator']}, want {want}")
+        report = json.loads(proc.stderr.splitlines()[-1])
+        check(report["host_waits"] == 0, f"bench {name}: host waits")
+        check(report["launches_per_step"]["shift_lerp_grouped"] == 2 * ACCUM,
+              f"bench {name}: launches {report['launches_per_step']}")
+        out[name] = {"env": env, "line": line, "report": report,
+                     "seconds": seconds}
+    emit("bench", **out)
+    return out
+
+
 def main() -> int:
     global CARD
     try:
@@ -4626,6 +4690,8 @@ def main() -> int:
     # ---- 12c. the entry point; 12d. the perf guard, cut ----------------------------
     phase_entry(torch, dev)
     phase_bench_guard(torch, dev)
+    # ---- 12e. the port's bench, python -m peclr_tpu_torch.bench --------------
+    bench_run = phase_bench(torch, dev)
 
     # ---- 13. kernels line --------------------------------------------------------
     def summary(name, source, replaces, launches, rows, timed_case, **extra):
@@ -4663,6 +4729,10 @@ def main() -> int:
                 launches_per_ddp_step_per_rank=ddp_run["rn50"][
                     "launches_per_rank"]["shift_lerp_grouped"],
                 launches_per_weak_scaling_step=weak_launches["grouped"],
+                launches_per_bench_step={
+                    name: run["report"]["launches_per_step"][
+                        "shift_lerp_grouped"]
+                    for name, run in bench_run.items()},
                 launches_per_ddp_cli_epoch=[
                     e["launches"]["shift_lerp_grouped"]
                     for e in ddp_run["cli"]["epochs"]],

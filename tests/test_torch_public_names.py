@@ -4,9 +4,10 @@ pseudo_joint_bound, read_yaml, and constants.py's BASE_DIR and FreiHAND
 sizes), and a diff of every public name of the two packages: each
 top-level function, class and constant of a module of peclr_tpu, and of
 the reference's scripts that the port carries (SCRIPTS), and of the
-reference's entry points (__graft_entry__.py, ENTRY), has a counterpart in
-the port's module of the same path (peclr_tpu_torch/entry.py for the
-entry points), or stands on the written list of deliberate differences
+reference's entry points (__graft_entry__.py, ENTRY) and bench (bench.py,
+BENCH), has a counterpart in the port's module of the same path
+(peclr_tpu_torch/entry.py for the entry points, peclr_tpu_torch/bench.py
+for the bench), or stands on the written list of deliberate differences
 below."""
 
 import ast
@@ -39,6 +40,8 @@ SCRIPTS = ("accuracy_proxy.py", "downstream_chain.py", "trace_buckets.py",
 #: the reference's entry points and the port's module that mirrors
 #: them (entry, and dryrun_multichip re-exported from parallel/dryrun.py)
 ENTRY = ("__graft_entry__.py", "peclr_tpu_torch/entry.py")
+#: the reference's bench and the port's (python -m peclr_tpu_torch.bench)
+BENCH = ("bench.py", "peclr_tpu_torch/bench.py")
 
 #: reference names the port does not have, each with what covers it: JAX-
 #: or TPU-only names, and names whose job the port does another way.  "*"
@@ -95,6 +98,10 @@ DELIBERATE = {
         "*": "the Pallas kernels; their counterparts are "
              "ops/shift_lerp.py, ops/shift_lerp_matmul.py and csrc/",
     },
+    "bench.py": {
+        "BASELINE_IMG_PER_SEC": "a TPU v4 target; `vs_baseline` is null on "
+                                "the card",
+    },
     "scripts/bench_pred_pipeline.py": {
         "DEVICE_BUSY_MS_PER_BATCH128": "the TPU trace's busy time; the "
                                        "port measures its own each run "
@@ -146,6 +153,7 @@ def _module_pairs():
     for name in SCRIPTS:
         pairs.append((f"scripts/{name}", f"peclr_tpu_torch/scripts/{name}"))
     pairs.append(ENTRY)
+    pairs.append(BENCH)
     return sorted(pairs)
 
 
