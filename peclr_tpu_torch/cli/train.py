@@ -72,7 +72,10 @@ def build_parser(description: str = "PeCLR pretraining (PyTorch)"):
     p.add_argument("-lr_max_epochs", type=int, default=None)
     p.add_argument("--use_palm", action="store_true")
     p.add_argument("-profile_dir", type=str, default=None,
-                   help="torch.profiler trace output dir (first epoch)")
+                   help="torch.profiler Chrome trace output dir (first "
+                        "epoch); it holds the program's spans "
+                        "(pretrain.step, pretrain.backward, warp.shift, ...) "
+                        "beside torch's ops and the card's kernels")
     p.add_argument("-canvas", type=int, default=224,
                    help="host canvas size fed to the device augmenter")
     p.add_argument("-view_size", type=int, default=None,

@@ -41,6 +41,7 @@ from peclr_tpu_torch.data.sampler import BalancedSampler, EpochSampler
 from peclr_tpu_torch.device import DeviceLike, resolve_device
 from peclr_tpu_torch.parallel.mesh import Mesh, local_rows
 from peclr_tpu_torch.parallel.multihost import global_batch_from_host_local
+from peclr_tpu_torch.utils import profiler
 
 
 def decode_image(path: str) -> np.ndarray:
@@ -315,11 +316,13 @@ def host_to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     memory with non_blocking=True: the copy queues behind the work in
     flight instead of making the host wait for it (a copy from pageable
     memory does).  A tensor goes by Tensor.to (as it is where it lies on
-    `device` already, `cuda` or `cuda:0` alike)."""
+    `device` already, `cuda` or `cuda:0` alike).  The bytes it pins are
+    counted as `pinned_bytes` (utils/profiler.py:count)."""
     if isinstance(arr, torch.Tensor):
         return arr.to(device, non_blocking=True)
     t = torch.from_numpy(np.ascontiguousarray(arr))
     if device.type == "cuda":
+        profiler.count("pinned_bytes", t.nbytes)
         return t.pin_memory().to(device, non_blocking=True)
     return t.to(device)
 
@@ -329,7 +332,8 @@ def cuda_copier(device: DeviceLike, slots: int = 2) -> Callable:
     through one of `slots` sets of pinned buffers, reused in turn once its
     last copy has finished, and is copied with non_blocking=True on a side
     stream.  One copier serves any number of device_prefetch calls, one at
-    a time, so its pinned buffers are made once."""
+    a time, so its pinned buffers are made once (their bytes counted as
+    `pinned_bytes`, utils/profiler.py:count)."""
     device = torch.device(device)
     side = torch.cuda.Stream(device)
     pinned: List[Dict[str, torch.Tensor]] = [{} for _ in range(slots)]
@@ -350,6 +354,7 @@ def cuda_copier(device: DeviceLike, slots: int = 2) -> Callable:
                         or buf.dtype != host.dtype):
                     buf = bufs[key] = torch.empty(host.shape, dtype=host.dtype,
                                                   pin_memory=True)
+                    profiler.count("pinned_bytes", buf.nbytes)
                 buf.copy_(host)
                 out[key] = buf.to(device, non_blocking=True)
             event = torch.cuda.Event()

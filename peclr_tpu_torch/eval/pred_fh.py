@@ -8,7 +8,10 @@ Two-pass protocol (reference testing/pred_fh.py:80-126):
   3. kp3d -> palm->wrist -> AIT->Zimmermann order -> x metric scale.
 
 Both passes run batched on the card; each warp runs the CUDA shift kernel
-twice, so one predict call launches it four times.  Output is the CodaLab
+twice, so one predict call launches it four times.  Spans
+(utils/profiler.py:span, recorded only under torch.profiler): `pred.pass1`,
+`pred.refine`, `pred.pass2` in run_two_pass; `pred.h2d` and `pred.fetch`,
+a batch's copies to and from the card, in pipelined.  Output is the CodaLab
 pred_<name>.json + .zip.
 """
 
@@ -31,6 +34,7 @@ from peclr_tpu_torch.geometry.camera import move_palm_to_wrist
 from peclr_tpu_torch.geometry.joints import permutation
 from peclr_tpu_torch.ops.image import normalize_imagenet
 from peclr_tpu_torch.ops.warp_mxu import affine_warp_mxu
+from peclr_tpu_torch.utils.profiler import span
 
 BBOX_SCALE = 0.33
 CROP_SIZE = 224
@@ -87,16 +91,19 @@ def run_two_pass(model: torch.nn.Module, images_u8: torch.Tensor,
     their device.  Returns pass 1's kp25d, the refined affine T2 and the
     final kp3d (palm moved back to the wrist)."""
     b = images_u8.shape[0]
-    T1 = device_constant(initial_affine().tolist(),
-                         images_u8.device).expand(b, 3, 3)
-    K = K.to(torch.float32)
-    img1 = _preprocess(images_u8, T1, lerp_in_kernel)
-    out1 = model(img1, K=torch.einsum("bij,bjk->bik", T1, K))
-    T2 = refine_affine(out1["kp25d"][..., :2], T1)
-    img2 = _preprocess(images_u8, T2, lerp_in_kernel)
-    out2 = model(img2, K=torch.einsum("bij,bjk->bik", T2, K))
-    return {"kp25d_1": out1["kp25d"], "T2": T2,
-            "kp3d": move_palm_to_wrist(out2["kp3d"])}
+    with span("pred.pass1"):
+        T1 = device_constant(initial_affine().tolist(),
+                             images_u8.device).expand(b, 3, 3)
+        K = K.to(torch.float32)
+        img1 = _preprocess(images_u8, T1, lerp_in_kernel)
+        out1 = model(img1, K=torch.einsum("bij,bjk->bik", T1, K))
+    with span("pred.refine"):
+        T2 = refine_affine(out1["kp25d"][..., :2], T1)
+    with span("pred.pass2"):
+        img2 = _preprocess(images_u8, T2, lerp_in_kernel)
+        out2 = model(img2, K=torch.einsum("bij,bjk->bik", T2, K))
+        kp3d = move_palm_to_wrist(out2["kp3d"])
+    return {"kp25d_1": out1["kp25d"], "T2": T2, "kp3d": kp3d}
 
 
 def make_two_pass_predictor(model: torch.nn.Module,
@@ -142,12 +149,14 @@ def pipelined(predict: Callable, batches: Iterable, depth: int,
 
     def fetch():
         idx, pad, out = pending.popleft()
-        kp3d = out.cpu().numpy()
+        with span("pred.fetch"):
+            kp3d = out.cpu().numpy()
         return idx, (kp3d[:-pad] if pad else kp3d)
 
     for idx, pad, imgs, K in batches:
-        pending.append((idx, pad, predict(host_to_device(imgs, device),
-                                          host_to_device(K, device))))
+        with span("pred.h2d"):
+            imgs, K = host_to_device(imgs, device), host_to_device(K, device)
+        pending.append((idx, pad, predict(imgs, K)))
         if len(pending) >= depth:
             yield fetch()
     while pending:

@@ -22,6 +22,9 @@ names which kernels run each pass:
              matrices (the reference's PECLR_SHIFT_FUSE=matmul);
   "nhwc"     pixels keep their channels, the flat shift kernel on (W*C)
              rows, then einsum (the reference's _shift_rows_any route).
+
+Each shift pass, kernel or plain version, runs inside a `warp.shift` span
+(utils/profiler.py:span), two a warp on every route.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ import torch
 from peclr_tpu_torch.ops import shift_lerp
 from peclr_tpu_torch.ops.shift_lerp import fused_shift_lerp_grouped
 from peclr_tpu_torch.ops.shift_lerp_matmul import fused_shift_lerp_matmul
+from peclr_tpu_torch.utils.profiler import span
 
 ROUTES = ("grouped", "matmul", "nhwc")
 
@@ -120,14 +124,16 @@ def _shift_pass_cfirst(xc: torch.Tensor, offsets: torch.Tensor, window: int,
     k = k_true.clamp(-(window + 2), w).to(torch.int32).reshape(-1)
     f = (offsets - k_true).to(torch.float32).reshape(-1)
     if lerp_in_kernel:
-        out = fused_shift_lerp_grouped(rows3, k, f, window,
-                                       out_dtype=lerp_dtype)
+        with span("warp.shift"):
+            out = fused_shift_lerp_grouped(rows3, k, f, window,
+                                           out_dtype=lerp_dtype)
         return out.reshape(c, b, h, window)
-    raw = fused_shift_lerp_grouped(rows3, k, None, window, lerp=False)
-    win = raw.reshape(c, b, h, window).to(torch.float32)
-    hi = torch.cat([win[..., 1:], torch.zeros_like(win[..., :1])], dim=-1)
-    f4 = f.reshape(1, b, h, 1)
-    return (win * (1.0 - f4) + hi * f4).to(lerp_dtype)
+    with span("warp.shift"):
+        raw = fused_shift_lerp_grouped(rows3, k, None, window, lerp=False)
+        win = raw.reshape(c, b, h, window).to(torch.float32)
+        hi = torch.cat([win[..., 1:], torch.zeros_like(win[..., :1])], dim=-1)
+        f4 = f.reshape(1, b, h, 1)
+        return (win * (1.0 - f4) + hi * f4).to(lerp_dtype)
 
 
 def _default_compute_dtype(device: torch.device) -> torch.dtype:
@@ -152,23 +158,29 @@ def _warp_matmul(x, rows_off, cols_off, alpha, D, u_size, v_size, out_hw,
 
     k1, f1 = shifts(rows_off, u_size, xc.shape[3])
     w1_t = tap_matrix(alpha, u_size, out_w, transposed=True).to(compute_dtype)
-    tmp = fused_shift_lerp_matmul(xc, k1, f1, w1_t, out_dtype=compute_dtype)
+    with span("warp.shift"):
+        tmp = fused_shift_lerp_matmul(xc, k1, f1, w1_t,
+                                      out_dtype=compute_dtype)
     k2, f2 = shifts(cols_off, v_size, tmp.shape[3])
     w2_t = tap_matrix(D, v_size, out_h, transposed=True).to(compute_dtype)
-    out = fused_shift_lerp_matmul(tmp, k2, f2, w2_t,
-                                  out_dtype=torch.float32)  # (C, B, out_h, out_w)
+    with span("warp.shift"):
+        # (C, B, out_h, out_w)
+        out = fused_shift_lerp_matmul(tmp, k2, f2, w2_t,
+                                      out_dtype=torch.float32)
     return out.permute(1, 2, 3, 0)
 
 
 def _warp_nhwc(x, rows_off, cols_off, w1, w2, u_size, v_size, compute_dtype):
     """Both passes through the flat (NHWC) shift kernel, each followed by a
     per-image tap einsum."""
-    shifted = shift_lerp.shift_rows(x, rows_off, u_size,
-                                    compute_dtype)  # (B, H, U, C)
+    with span("warp.shift"):
+        shifted = shift_lerp.shift_rows(x, rows_off, u_size,
+                                        compute_dtype)  # (B, H, U, C)
     tmp = torch.einsum("bhuc,bui->bhic", shifted, w1)  # compute_dtype
     tmp_t = tmp.transpose(1, 2)  # (B, out_w, H, C)
-    shifted_v = shift_lerp.shift_rows(tmp_t, cols_off, v_size,
-                                      compute_dtype)  # (B, out_w, V, C)
+    with span("warp.shift"):
+        shifted_v = shift_lerp.shift_rows(tmp_t, cols_off, v_size,
+                                          compute_dtype)  # (B, out_w, V, C)
     # f32 products and sums of the compute-dtype operands
     return torch.einsum("bivc,bvj->bjic", shifted_v.to(torch.float32),
                         w2.to(torch.float32))  # (B, out_h, out_w, C)

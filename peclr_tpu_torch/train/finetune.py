@@ -8,6 +8,10 @@ optimizer.  The model runs in float32, as the reference's RN25DPose does;
 the warp takes its default compute type (bf16 on the card).  Pretrained
 PeCLR encoders load into the backbone by a rename of keys
 (models/port.py).
+
+Spans (utils/profiler.py:span; recorded only under torch.profiler):
+`finetune.step` holds `finetune.augment`, `.zero_grad`, `.forward`,
+`.loss`, `.backward` and `.update`.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from peclr_tpu_torch.losses.supervised import l1_loss_25d, loss_3d
 from peclr_tpu_torch.models.port import peclr_to_torchvision
 from peclr_tpu_torch.train.optimizer import PretrainOptimizer
 from peclr_tpu_torch.train.state import TrainState
+from peclr_tpu_torch.utils.profiler import span
 
 
 def make_finetune_step(
@@ -51,29 +56,40 @@ def make_finetune_step(
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator],
              draws: Optional[Draws] = None):
+        with span("finetune.step"):
+            return _step(state, batch, generator, draws)
+
+    def _step(state, batch, generator, draws):
         if state.model is not model or state.optimizer is not optimizer:
             raise ValueError("the state holds another model or optimizer "
                              "than the step was made with")
-        sample = supervised_sample_batch(
-            generator, batch, flags, aug_params, use_palm=use_palm,
-            draws=draws, compute_dtype=compute_dtype)
+        with span("finetune.augment"):
+            sample = supervised_sample_batch(
+                generator, batch, flags, aug_params, use_palm=use_palm,
+                draws=draws, compute_dtype=compute_dtype)
         model.train()
-        optimizer.zero_grad(set_to_none=True)
-        out = model(sample["image"], K=sample["K"])
-        l2d, lz, lz_unscaled = l1_loss_25d(out["kp25d"], sample["joints"],
-                                           sample["scale"],
-                                           sample["joints_valid"])
-        total = l2d + lz
-        metrics = {"loss_2d": l2d, "loss_z": lz,
-                   "loss_z_unscaled": lz_unscaled}
-        if loss_3d_weight > 0:
-            l3d = loss_3d(out["kp25d"], sample["joints3D"], sample["scale"],
-                          sample["K"], sample["joints_valid"])
-            metrics["loss_3d"] = l3d
-            total = total + loss_3d_weight * l3d
-        metrics["loss"] = total
-        total.backward()
-        optimizer.step()
+        with span("finetune.zero_grad"):
+            optimizer.zero_grad(set_to_none=True)
+        with span("finetune.forward"):
+            out = model(sample["image"], K=sample["K"])
+        with span("finetune.loss"):
+            l2d, lz, lz_unscaled = l1_loss_25d(
+                out["kp25d"], sample["joints"], sample["scale"],
+                sample["joints_valid"])
+            total = l2d + lz
+            metrics = {"loss_2d": l2d, "loss_z": lz,
+                       "loss_z_unscaled": lz_unscaled}
+            if loss_3d_weight > 0:
+                l3d = loss_3d(out["kp25d"], sample["joints3D"],
+                              sample["scale"], sample["K"],
+                              sample["joints_valid"])
+                metrics["loss_3d"] = l3d
+                total = total + loss_3d_weight * l3d
+            metrics["loss"] = total
+        with span("finetune.backward"):
+            total.backward()
+        with span("finetune.update"):
+            optimizer.step()
         state.step += 1
         return state, {k: v.detach() for k, v in metrics.items()}
 

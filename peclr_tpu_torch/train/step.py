@@ -37,6 +37,11 @@ global-view step on the global batch, up to summation order:
     gradient of the global mean loss, and the update is the same on every
     rank.
 The collectives run at every world size, 1 included.
+
+Spans (utils/profiler.py:span; recorded only under torch.profiler):
+`pretrain.step` holds `pretrain.zero_grad`, accum `pretrain.microbatch`
+(each `pretrain.augment`, `.forward`, `.loss`, `.backward`) and
+`pretrain.update`.
 """
 
 from __future__ import annotations
@@ -57,6 +62,7 @@ from peclr_tpu_torch.parallel.collectives import all_gather
 from peclr_tpu_torch.parallel.mesh import Mesh, shard_batch
 from peclr_tpu_torch.train.optimizer import PretrainOptimizer
 from peclr_tpu_torch.train.state import TrainState
+from peclr_tpu_torch.utils.profiler import span
 
 PRECISIONS = ("bf16", "f32")
 
@@ -146,6 +152,10 @@ def make_peclr_train_step(
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    generator: Optional[torch.Generator],
                    draws: Optional[List[Dict[str, torch.Tensor]]] = None):
+        with span("pretrain.step"):
+            return _train_step(state, batch, generator, draws)
+
+    def _train_step(state, batch, generator, draws):
         if state.model is not model or state.optimizer is not optimizer:
             raise ValueError("the state holds another model or optimizer "
                              "than the step was made with")
@@ -162,33 +172,17 @@ def make_peclr_train_step(
         compute_dtype = torch.bfloat16 if bf16 else torch.float32
 
         model.train()
-        optimizer.zero_grad(set_to_none=True)
+        with span("pretrain.zero_grad"):
+            optimizer.zero_grad(set_to_none=True)
         loss_sum = torch.zeros((), device=device)
         for i in range(accum):
-            sl = slice(i * mb, (i + 1) * mb)
-            mb_draws = None if draws is None else draws[i]
-            if mesh is not None:
-                mb_draws = _rank_draws(mesh, generator, mb, flags, aug_params,
-                                       mb_draws)
-            v1, v2 = augment_pair(
-                generator, images[sl], joints[sl], flags, aug_params,
-                draws=mb_draws, route=warp_route,
-                compute_dtype=compute_dtype)
-            # one gradient all-reduce a step, in the last microbatch's
-            # backward
-            sync = (forward.no_sync() if mesh is not None and i < accum - 1
-                    else contextlib.nullcontext())
-            with sync:
-                with torch.autocast(device.type, dtype=torch.bfloat16,
-                                    enabled=bf16):
-                    out = forward(torch.cat([v1.images, v2.images]))
-                proj = out["projection"]
-                z1, z2 = peclr_projections(proj[:mb], proj[mb:], v1.params,
-                                           v2.params, image_size=image_size,
-                                           augmentations=augmentations)
-                loss = ntxent_loss(z1, z2, temperature, mesh=mesh)
-                (loss / accum).backward()
-            loss_sum += loss.detach()
+            with span("pretrain.microbatch"):
+                loss, proj = microbatch(images[i * mb:(i + 1) * mb],
+                                        joints[i * mb:(i + 1) * mb], generator,
+                                        None if draws is None else draws[i],
+                                        compute_dtype, bf16,
+                                        last=i == accum - 1)
+                loss_sum += loss.detach()
         stats = {}
         if with_stats:
             proj1, proj2 = proj[:mb].detach(), proj[mb:].detach()
@@ -199,9 +193,40 @@ def make_peclr_train_step(
                                 for p in (proj1, proj2))
             stats = {**projection_stats(proj1, "proj1"),
                      **projection_stats(proj2, "proj2")}
-        optimizer.step()
+        with span("pretrain.update"):
+            optimizer.step()
         state.step += 1
         return state, {"loss": loss_sum / accum, **stats}
+
+    def microbatch(images, joints, generator, mb_draws, compute_dtype, bf16,
+                   last):
+        """One microbatch's augmentation, forward, loss and backward (the
+        gradients add loss/accum); returns its loss and projections."""
+        mb = images.shape[0]
+        device = images.device
+        with span("pretrain.augment"):
+            if mesh is not None:
+                mb_draws = _rank_draws(mesh, generator, mb, flags, aug_params,
+                                       mb_draws)
+            v1, v2 = augment_pair(
+                generator, images, joints, flags, aug_params, draws=mb_draws,
+                route=warp_route, compute_dtype=compute_dtype)
+        # one gradient all-reduce a step, in the last microbatch's backward
+        sync = (forward.no_sync() if mesh is not None and not last
+                else contextlib.nullcontext())
+        with sync:
+            with span("pretrain.forward"), torch.autocast(
+                    device.type, dtype=torch.bfloat16, enabled=bf16):
+                out = forward(torch.cat([v1.images, v2.images]))
+            with span("pretrain.loss"):
+                proj = out["projection"]
+                z1, z2 = peclr_projections(proj[:mb], proj[mb:], v1.params,
+                                           v2.params, image_size=image_size,
+                                           augmentations=augmentations)
+                loss = ntxent_loss(z1, z2, temperature, mesh=mesh)
+            with span("pretrain.backward"):
+                (loss / accum).backward()
+        return loss, proj
 
     return train_step
 

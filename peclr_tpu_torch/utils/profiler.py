@@ -3,7 +3,16 @@ peclr_tpu/utils/profiler.py).
 
 * `trace(logdir)`: a torch.profiler capture of the CPU and, where there is
   one, the card, yielded and written as a Chrome trace to `logdir` ("" for
-  none; no capture at all when None).
+  none; no capture at all when None).  The trace holds the program's
+  spans (below) beside torch's ops and the card's kernels.
+* `span(name)`: the program's own span around a phase of its work, a
+  torch.profiler user annotation while a capture is active (so it lands in
+  the capture beside the card's kernels, on the profiler's clock, and in
+  `trace`'s Chrome trace), else one shared no-op context manager.  Names
+  are `<kind>.<phase>` (`pretrain.backward`, `warp.shift`, `pred.h2d`) and
+  never hold `::`, which marks torch's own ops in a trace.
+* `count(name, n)` / `counters()`: process-wide totals, added to only while
+  a capture is active (`pinned_bytes`: host memory pinned anew).
 * `Throughput`: images/s and an EMA of the step time, first steps skipped.
 """
 
@@ -11,8 +20,40 @@ from __future__ import annotations
 
 import contextlib
 import os
+import threading
 import time
-from typing import Optional
+from typing import Dict, Optional
+
+import torch
+from torch.autograd import profiler as _autograd_profiler
+from torch.profiler import record_function
+
+#: what span() gives outside a capture: reusable, and re-entrant
+_NO_SPAN = contextlib.nullcontext()
+_counters: Dict[str, int] = {}
+_counters_lock = threading.Lock()
+
+
+def span(name: str):
+    """A context manager that records `name` as a span of the capture that
+    is active, if any: torch.profiler.record_function(name) then, else the
+    shared no-op (one test of the profiler's process-wide flag)."""
+    if _autograd_profiler._is_profiler_enabled:
+        return record_function(name)
+    return _NO_SPAN
+
+
+def count(name: str, n: int) -> None:
+    """Add n to the counter `name` while a capture is active."""
+    if _autograd_profiler._is_profiler_enabled:
+        with _counters_lock:
+            _counters[name] = _counters.get(name, 0) + n
+
+
+def counters() -> Dict[str, int]:
+    """The counters' totals so far in this process, a copy."""
+    with _counters_lock:
+        return dict(_counters)
 
 
 @contextlib.contextmanager
@@ -22,7 +63,6 @@ def trace(logdir: Optional[str]):
     if logdir is None:
         yield None
         return
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
