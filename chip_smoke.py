@@ -44,6 +44,16 @@ one JSON line that carries the card's name and power limit:
               and taps at the recipe's pass-2 shapes: NaN and +-Inf where
               the plain version has them; then the step factories turn TF32
               off for a model moved to the card without resolve_device
+ 3f. photometric  kernel 5, the augmentation's photometric tail (colour
+              jitter, noise, drop, /255, normalisation in one pass), against
+              its plain chain on the warp's own outputs at the pretrain
+              cell's microbatch (512 canvases, 1,024 views) on the grouped
+              route ((C, B, H, W) planes) and the nhwc route (NHWC), the
+              fine-tune's tail (no jitter), every flag on and a ragged
+              5 x 77 x 130: bit for bit, but the drop's gray
+              value within 1e-6 (samples whose coin is 0 bit for bit);
+              one launch an augment_pair; kernel, device, plain and bound
+              times
   4. warp     affine_warp_mxu at the pred_fh geometry, kernel against plain,
               both in bf16 on the card: max abs <= 2.5 (the TPU's bound for
               the same comparison); then the pretrain geometry (256 seeded
@@ -99,8 +109,9 @@ one JSON line that carries the card's name and power limit:
               the repeat phase's recipe cases, ragged ones (odd row counts,
               rows and outputs off the 16-byte vector, kernel 4 with a bf16
               source, four planes, R = 97, M = 77, U = 131), the band pass
-              alone and the four stream ops (bench_streams' shape and a
-              ragged one, bf16 and f32), each launched as it is and then
+              alone, the four stream ops (bench_streams' shape and a
+              ragged one, bf16 and f32) and kernel 5 at four ragged
+              shapes, each launched as it is and then
               after the caching allocator's free blocks of the sizes it
               allocates were filled with 0x00, 0xFF (NaN in bf16 and f32, -1
               in the band scratch) and 0xA5: every buffer the wrapper
@@ -251,7 +262,9 @@ one JSON line that carries the card's name and power limit:
               img/s > 0, vs_baseline null, the estimator string; its
               stderr report with no host wait and kernel 1 launched 2 x
               16 a step
- 13. kernels  one line listing every ported kernel and the stream kernels,
+ 13. kernels  one line listing every ported kernel, the stream kernels and
+              kernel 5 (its launches as the pretrain phase's steps, a
+              fine-tune step and an evaluate batch read them),
               each with its poison result (7c) and "sanitizer": null: the
               CUDA toolkit's compute-sanitizer (2025.2.1, in
               /usr/local/cuda/bin) refuses the card's host ("Device not
@@ -271,6 +284,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import functools
 import importlib
 import itertools
@@ -421,12 +435,24 @@ def kernel_counts():
         fused_shift_lerp,
         fused_shift_lerp_grouped,
     )
+    from peclr_tpu_torch.ops.photometric import photometric
     from peclr_tpu_torch.ops.shift_lerp_matmul import fused_shift_lerp_matmul
 
     return {"shift_lerp_grouped": fused_shift_lerp_grouped.launches,
             "shift_raw_grouped": fused_shift_lerp_grouped.raw_launches,
             "shift_lerp_flat": fused_shift_lerp.launches,
-            "shift_lerp_matmul": fused_shift_lerp_matmul.launches}
+            "shift_lerp_matmul": fused_shift_lerp_matmul.launches,
+            "photometric": photometric.launches}
+
+
+def augment_launches(kernel, applies: int) -> dict:
+    """The launches of `applies` calls of augment.apply on the route whose
+    shift kernel is `kernel` (None: the gather warp): two shift passes and
+    one photometric tail each; every other kernel none."""
+    want = {"photometric": applies}
+    if kernel is not None:
+        want[kernel] = 2 * applies
+    return want
 
 
 def reset_counts() -> None:
@@ -434,12 +460,14 @@ def reset_counts() -> None:
         fused_shift_lerp,
         fused_shift_lerp_grouped,
     )
+    from peclr_tpu_torch.ops.photometric import photometric
     from peclr_tpu_torch.ops.shift_lerp_matmul import fused_shift_lerp_matmul
 
     fused_shift_lerp_grouped.launches = 0
     fused_shift_lerp_grouped.raw_launches = 0
     fused_shift_lerp.launches = 0
     fused_shift_lerp_matmul.launches = 0
+    photometric.launches = 0
     fused_shift_lerp_grouped.last_path = None
     fused_shift_lerp.last_path = None
 
@@ -1334,10 +1362,11 @@ def phase_pretrain(torch, dev):
             seconds = time.perf_counter() - t0
             counts = kernel_counts()
             check(math.isfinite(loss), f"{route}: loss not finite")
+            want = augment_launches(kernel_of[route], ACCUM)
             for kname, launched in counts.items():
-                want = 2 * ACCUM if kname == kernel_of[route] else 0
-                check(launched == want, f"{route}: {kname} launched "
-                      f"{launched} times in a step, want {want}")
+                check(launched == want.get(kname, 0), f"{route}: {kname} "
+                      f"launched {launched} times in a step, want "
+                      f"{want.get(kname, 0)}")
             paths = shift_paths()
             if route in ("grouped", "nhwc"):
                 took = paths["grouped" if route == "grouped" else "flat"]
@@ -1745,10 +1774,10 @@ def phase_trainer(torch, dev, root):
               f"trainer epoch {epoch}: loss not finite")
         before = snaps[epoch - 1] if epoch else {k: 0 for k in counts}
         launched = {k: snaps[epoch][k] - before[k] for k in counts}
+        want = augment_launches("shift_lerp_grouped", per_epoch // 2)
         for kname, n in launched.items():
-            want = per_epoch if kname == "shift_lerp_grouped" else 0
-            check(n == want, f"trainer epoch {epoch}: {kname} launched "
-                  f"{n} times, want {want}")
+            check(n == want.get(kname, 0), f"trainer epoch {epoch}: {kname} "
+                  f"launched {n} times, want {want.get(kname, 0)}")
         busy_s = rec["epoch_time_s"] - rec["data_wait_s"]
         epochs.append({
             "epoch": epoch, "loss": rec["loss"], "val_loss": val["loss"],
@@ -1818,9 +1847,9 @@ def phase_trainer(torch, dev, root):
           f"replay: batches not all decoded on the port's pool: "
           f"{dict(replay.pipeline.decode_paths)}")
     replay_launched = kernel_counts()
-    check(replay_launched["shift_lerp_grouped"] == per_epoch
-          and sum(replay_launched.values()) == per_epoch,
-          f"replay launches {replay_launched}")
+    check(replay_launched == {k: augment_launches(
+        "shift_lerp_grouped", per_epoch // 2).get(k, 0)
+        for k in replay_launched}, f"replay launches {replay_launched}")
     emit("trainer", data="FreiHAND-layout fixture " + TRAINER_FIXTURE,
          decoder=probe["decoder"], pair_figure=bool(figure),
          argv=TRAINER_ARGV, model="PeCLR RN50 + projection head, LARS, "
@@ -2130,10 +2159,10 @@ def phase_finetune(torch, dev, pretrained, root):
         check(rec["steps"] == FINETUNE_STEPS and math.isfinite(rec["loss"]),
               f"fine-tune epoch {epoch}: {rec['steps']} steps, loss "
               f"{rec['loss']}")
+        want = augment_launches("shift_lerp_grouped", FINETUNE_STEPS)
         for kname, n in launched.items():
-            want = 2 * FINETUNE_STEPS if kname == "shift_lerp_grouped" else 0
-            check(n == want, f"fine-tune epoch {epoch}: {kname} launched {n} "
-                  f"times, want {want}")
+            check(n == want.get(kname, 0), f"fine-tune epoch {epoch}: {kname} "
+                  f"launched {n} times, want {want.get(kname, 0)}")
         busy_s = rec["epoch_time_s"] - rec["data_wait_s"]
         epochs.append({
             "epoch": epoch, "loss": rec["loss"],
@@ -2167,10 +2196,10 @@ def phase_finetune(torch, dev, pretrained, root):
     check(len(results) == 9 and all(math.isfinite(v)
                                     for v in results.values()),
           f"evaluate CLI results {results}")
+    want = augment_launches("shift_lerp_grouped", EVAL_BATCHES)
     for kname, n in eval_counts.items():
-        want = 2 * EVAL_BATCHES if kname == "shift_lerp_grouped" else 0
-        check(n == want, f"evaluate CLI: {kname} launched {n} times, want "
-              f"{want}")
+        check(n == want.get(kname, 0), f"evaluate CLI: {kname} launched {n} "
+              f"times, want {want.get(kname, 0)}")
     per_batch = eval_counts["shift_lerp_grouped"] / EVAL_BATCHES
 
     oracle = oracle_evaluate(torch, dev)
@@ -2187,7 +2216,11 @@ def phase_finetune(torch, dev, pretrained, root):
                    "img_per_s": EVAL_BATCH * EVAL_BATCHES / inner[0]},
          oracle_evaluate=oracle, port_cli=exported)
     return {"launches_per_step": per_step, "launches_per_eval_batch": per_batch,
-            "epochs": epochs}
+            "epochs": epochs,
+            "photometric_per_step": epochs[0]["launches"]["photometric"]
+            / FINETUNE_STEPS,
+            "photometric_per_eval_batch": eval_counts["photometric"]
+            / EVAL_BATCHES}
 
 
 # --------------------------------------------------------------------------
@@ -2235,10 +2268,11 @@ def ablation_routes(torch, dev):
         seconds = time.perf_counter() - t0
         counts = kernel_counts()
         check(math.isfinite(loss), f"all-flags {route}: loss not finite")
+        want = augment_launches(kernel_of[route], ACCUM)
         for kname, launched in counts.items():
-            want = 2 * ACCUM if kname == kernel_of[route] else 0
-            check(launched == want, f"all-flags {route}: {kname} launched "
-                  f"{launched} times in a step, want {want}")
+            check(launched == want.get(kname, 0), f"all-flags {route}: "
+                  f"{kname} launched {launched} times in a step, want "
+                  f"{want.get(kname, 0)}")
         runs[route] = {"first_loss": loss, "launches": counts,
                        "ms_per_step": seconds * 1e3,
                        "img_per_s": MICROBATCH * ACCUM / seconds,
@@ -2336,10 +2370,10 @@ def phase_ablation(torch, dev):
               f"{rec['loss']}, val {val['loss']}")
         before = snaps[epoch - 1] if epoch else {k: 0 for k in counts}
         launched = {k: snaps[epoch][k] - before[k] for k in counts}
+        want = augment_launches("shift_lerp_grouped", per_epoch // 2)
         for kname, n in launched.items():
-            want = per_epoch if kname == "shift_lerp_grouped" else 0
-            check(n == want, f"ablation epoch {epoch}: {kname} launched {n} "
-                  f"times, want {want}")
+            check(n == want.get(kname, 0), f"ablation epoch {epoch}: {kname} "
+                  f"launched {n} times, want {want.get(kname, 0)}")
         busy_s = rec["epoch_time_s"] - rec["data_wait_s"]
         epochs.append({
             "epoch": epoch, "loss": rec["loss"], "val_loss": val["loss"],
@@ -2584,10 +2618,10 @@ def ddp_two_ranks(torch, dev, case: str, one: dict) -> dict:
               f"ddp {case} rank {r}: step {got['step']}, loss {got['loss']}")
         check(got["rows_a_microbatch"] == c["micro"] // 2,
               f"ddp {case} rank {r}: {got['rows_a_microbatch']} rows")
+        want = augment_launches("shift_lerp_grouped", c["accum"])
         for kname, n in got["launches"].items():
-            want = 2 * c["accum"] if kname == "shift_lerp_grouped" else 0
-            check(n == want, f"ddp {case} rank {r}: {kname} launched {n} "
-                  f"times in a step, want {want}")
+            check(n == want.get(kname, 0), f"ddp {case} rank {r}: {kname} "
+                  f"launched {n} times in a step, want {want.get(kname, 0)}")
     check(ranks[0]["digests"] == ranks[1]["digests"],
           f"ddp {case}: the ranks' states differ after the step")
     check(ranks[0]["loss"] == ranks[1]["loss"], f"ddp {case}: rank losses "
@@ -2659,10 +2693,10 @@ def ddp_cli(torch, dev, root, trainer_run) -> dict:
             k: 0 for k in rec["counts"]}
         launched = {k: rec["snapshots"][epoch][k] - before[k]
                     for k in rec["counts"]}
+        want = augment_launches("shift_lerp_grouped", per_epoch // 2)
         for kname, n in launched.items():
-            want = per_epoch if kname == "shift_lerp_grouped" else 0
-            check(n == want, f"ddp CLI epoch {epoch}: {kname} launched {n} "
-                  f"times, want {want}")
+            check(n == want.get(kname, 0), f"ddp CLI epoch {epoch}: {kname} "
+                  f"launched {n} times, want {want.get(kname, 0)}")
         epochs.append({
             "epoch": epoch, "loss": train["loss"], "val_loss": val["loss"],
             "img_per_s": images / train["epoch_time_s"],
@@ -2770,10 +2804,11 @@ def phase_pretrain_f32_matmul(torch, dev):
         seconds = time.perf_counter() - t0
         counts = kernel_counts()
         check(math.isfinite(loss), f"f32 {route}: loss not finite")
+        want = augment_launches(kernel_of[route], ACCUM)
         for kname, launched in counts.items():
-            want = 2 * ACCUM if kname == kernel_of[route] else 0
-            check(launched == want, f"f32 {route}: {kname} launched "
-                  f"{launched} times in a step, want {want}")
+            check(launched == want.get(kname, 0), f"f32 {route}: {kname} "
+                  f"launched {launched} times in a step, want "
+                  f"{want.get(kname, 0)}")
         runs[route] = {"loss": loss, "launches": counts,
                        "ms_per_step": seconds * 1e3,
                        "img_per_s": MICROBATCH * ACCUM / seconds,
@@ -3138,6 +3173,205 @@ def phase_tf32(torch, dev):
     emit("tf32", switches=[attr for _, attr in switches], after_build=after)
 
 
+# --------------------------------------------------------------------------
+# phase 3f: kernel 5, the photometric tail
+
+
+#: the pretrain cell's microbatch (benchmark/traffic/recipe-512x4.json):
+#: 512 canvases, so 1,024 views a call, 4 calls a step
+PHOTOMETRIC_MICROBATCH, PHOTOMETRIC_ACCUM = 512, 4
+#: the colour drop's gray value may move by a few ulp of 255 (the plain
+#: chain's einsum sums in cuBLAS's order): on the normalised output
+PHOTOMETRIC_DROP_TOL = 1e-6
+
+
+def photometric_inputs(torch, dev, route, canvases, seed, flags=None):
+    """The warp's output of one augment_pair over `canvases` seeded 224²
+    canvases on `route` (2 x canvases views, the strides the route hands
+    the tail), with the draws of the pair and the launches the pair made
+    of kernel 5 (counts set to 0 just before); the recipe's flags unless
+    given."""
+    from peclr_tpu_torch.config.defaults import (
+        AugmentationParams,
+        peclr_pretrain_flags,
+    )
+    from peclr_tpu_torch.ops import augment
+    from peclr_tpu_torch.ops.photometric import photometric
+
+    flags = peclr_pretrain_flags() if flags is None else flags
+    params = AugmentationParams()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    images = torch.randint(0, 256, (canvases, 224, 224, 3), generator=gen,
+                           device=dev, dtype=torch.uint8)
+    joints = torch.rand((canvases, 21, 3), generator=gen,
+                        device=dev) * 80.0 + 70.0
+    draws = augment.draw(gen, 2 * canvases, flags, params)
+    seen = []
+
+    def capture(x, *args, **kwargs):
+        seen.append(x)
+        return photometric(x, *args, **kwargs)
+
+    augment.photometric = capture
+    reset_counts()
+    try:
+        augment.augment_pair(None, images, joints, flags, params,
+                             draws=draws, route=route)
+    finally:
+        augment.photometric = photometric
+    torch.cuda.synchronize()
+    return seen[0], draws, kernel_counts()["photometric"]
+
+
+def photometric_call(x, d, jitter=True, noise=False, drop=False,
+                     normalize=True, plain=False):
+    from peclr_tpu_torch.ops import photometric as pm
+
+    fn = pm.photometric_plain if plain else pm.photometric
+    return lambda: fn(x, d["h"], d["s"], d["a"], d["b"],
+                      noise=d["noise"] if noise else None,
+                      noise_flag=d["noise_flag"] if noise else None,
+                      drop_flag=d["drop_flag"] if drop else None,
+                      jitter=jitter, normalize=normalize)
+
+
+def phase_photometric(torch, dev):
+    """Kernel 5 against the plain chain (module docstring, 3f): at the
+    pretrain cell's microbatch on the grouped and nhwc routes' own outputs,
+    the fine-tune's tail (no jitter), every flag on, and a ragged case;
+    bit for bit but for the drop's gray value.  Returns the rows."""
+    from peclr_tpu_torch.config.defaults import peclr_pretrain_flags
+
+    flags_all = dataclasses.replace(peclr_pretrain_flags(),
+                                    gaussian_noise=True, color_drop=True)
+    grouped, d_rec, per_pair = photometric_inputs(
+        torch, dev, "grouped", PHOTOMETRIC_MICROBATCH, SEED + 50)
+    check(per_pair == 1, f"photometric: {per_pair} launches an augment_pair")
+    nhwc, d_nhwc, _ = photometric_inputs(torch, dev, "nhwc",
+                                         PHOTOMETRIC_MICROBATCH, SEED + 51)
+    all_x, d_all, _ = photometric_inputs(torch, dev, "grouped",
+                                         PHOTOMETRIC_MICROBATCH, SEED + 52,
+                                         flags_all)
+    # the fine-tune's tail: 128 crops of 128², jitter off, normalised
+    fine = grouped[:FINETUNE_BATCH]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 53)
+    ragged = (torch.rand((3, 5, 77, 130), generator=gen, device=dev)
+              * 255.0).permute(1, 2, 3, 0)
+    d_ragged = {k: v[:5] for k, v in d_all.items()}
+    d_ragged["noise"] = torch.randn((5, 77, 130, 3), generator=gen,
+                                    device=dev)
+    cases = [
+        ("recipe_grouped", grouped, d_rec, {}),
+        ("recipe_nhwc", nhwc, d_nhwc, {}),
+        ("finetune_no_jitter", fine, d_rec, {"jitter": False}),
+        ("all_flags_grouped", all_x, d_all, {"noise": True, "drop": True}),
+        ("ragged_5x77x130", ragged, d_ragged, {"noise": True}),
+    ]
+    rows = []
+    for name, x, d, kw in cases:
+        kern = photometric_call(x, d, **kw)
+        plain = photometric_call(x, d, plain=True, **kw)
+        got, ref = kern(), plain()
+        torch.cuda.synchronize()
+        if kw.get("drop"):
+            off = d["drop_flag"] == 0
+            check(torch.equal(got[off], ref[off]),
+                  f"photometric {name}: undropped samples not bit-exact")
+            max_abs = (got - ref).abs().max().item()
+            check(max_abs <= PHOTOMETRIC_DROP_TOL,
+                  f"photometric {name}: {max_abs} > {PHOTOMETRIC_DROP_TOL}")
+            tol = PHOTOMETRIC_DROP_TOL
+        else:
+            check(torch.equal(got, ref) and got.stride() == ref.stride(),
+                  f"photometric {name}: not bit-exact in the plain layout")
+            max_abs, tol = 0.0, 0.0
+        # the input and output once each, and the noise where a coin is on
+        moved = 2 * x.numel() * 4
+        if kw.get("noise"):
+            moved += int(d["noise_flag"].sum().item()) * x[0].numel() * 4
+        row = {"case": name, "shape": list(x.shape), "stride": list(x.stride()),
+               "out_stride": list(got.stride()), "max_abs": max_abs,
+               "tolerance": tol,
+               "ms": cuda_ms(kern, 20), "device_ms": device_ms(kern, 10),
+               "plain_ms": cuda_ms(plain, 3),
+               "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+               "library_ms": None}
+        row["roofline"] = row["bound_ms"] / row["device_ms"]
+        rows.append(row)
+        emit("photometric", **row)
+    return {"rows": rows, "launches_per_augment_pair": per_pair}
+
+
+def photometric_row(run: dict, pretrain_runs: dict,
+                    finetune_run: dict) -> dict:
+    """Kernel 5's row of the kernels line (phase 13), timed at the pretrain
+    cell's microbatch on the grouped route; its launches as the pretrain
+    phase's steps (each route's first), the fine-tune CLI's first epoch and
+    the evaluate CLI read them, counts set to 0 just before each."""
+    rows = {r["case"]: r for r in run["rows"]}
+    timed = rows["recipe_grouped"]
+    return {
+        "name": "photometric", "route": "cuda",
+        "source": "peclr_tpu_torch/csrc/photometric.cu",
+        "replaces": ("none (colour jitter, noise, drop, /255 and the "
+                     "normalisation, which XLA fuses for the reference)"),
+        "launches": pretrain_runs["grouped"][0]["launches"]["photometric"],
+        "max_abs_err": max(r["max_abs"] for r in run["rows"]),
+        "ms": timed["ms"], "plain_ms": timed["plain_ms"],
+        "bound_ms": timed["bound_ms"], "bound_by": "bytes",
+        "library_ms": None, "timed_case": "recipe_grouped",
+        "device_ms": timed["device_ms"], "roofline": timed["roofline"],
+        "launches_per_augment_pair": run["launches_per_augment_pair"],
+        "launches_per_pretrain_step": {
+            route: r[0]["launches"]["photometric"]
+            for route, r in pretrain_runs.items()},
+        "launches_per_finetune_step": finetune_run["photometric_per_step"],
+        "launches_per_eval_batch": finetune_run["photometric_per_eval_batch"],
+        "cases": {case: {key: r[key] for key in (
+            "ms", "device_ms", "plain_ms", "bound_ms", "roofline")}
+            for case, r in rows.items()},
+    }
+
+
+#: kernel 5's ragged cases (photometric_ragged_inputs): name, (B, H, W),
+#: x in planes (else NHWC), jitter (else the plain chain keeps x's layout)
+PHOTOMETRIC_RAGGED = (
+    ("planes_w130", (5, 77, 130), True, True),
+    ("planes_h77", (3, 77, 128), True, True),
+    ("nhwc_7x13x36", (7, 13, 36), False, True),
+    ("planes_no_jitter", (3, 77, 128), True, False))
+
+
+def photometric_ragged_inputs(torch, dev):
+    """[(name, x, draws, jitter)] of kernel 5 at ragged shapes
+    (PHOTOMETRIC_RAGGED): W = 130 (no multiple of 4), H = 77 (a block's
+    rows cut), a block's last pixels part of a warp (7 x 13 x 36), and the
+    fine-tune's tail (no jitter) into x's planes."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 54)
+    out = []
+    for name, (b, h, w), planes, jitter in PHOTOMETRIC_RAGGED:
+        x = torch.rand((3, b, h, w), generator=gen, device=dev) * 255.0
+        x = x.permute(1, 2, 3, 0)
+        if not planes:
+            x = x.contiguous()
+        u = torch.rand((4, b), generator=gen, device=dev)
+        d = {"h": 0.01 + 0.99 * u[0], "s": 0.01 + 0.99 * u[1],
+             "a": 0.5 + 0.5 * u[2], "b": 5.0 + 15.0 * u[3],
+             "noise": torch.randn((b, h, w, 3), generator=gen, device=dev),
+             "noise_flag": (torch.arange(b, device=dev) % 2).float()}
+        out.append((f"photometric_ragged_{name}", x, d, jitter))
+    return out
+
+
+def photometric_cases(torch, dev):
+    """[(name, launch, plain)] of kernel 5 on photometric_ragged_inputs:
+    noise on every other sample and the normalisation, with the jitter
+    where the case has it (the drop's einsum is no bit-exact yardstick)."""
+    return [(name, photometric_call(x, d, jitter=jitter, noise=True),
+             photometric_call(x, d, jitter=jitter, noise=True, plain=True))
+            for name, x, d, jitter in photometric_ragged_inputs(torch, dev)]
+
+
 #: the accuracy phase: the downstream chain at the reference's widths (RN50,
 #: crop 128, batch 64), cut in steps only, and the proxy's pretraining
 ACCURACY_CHAIN_ARGV = ["--resnet", "50", "--crop", "128", "--batch", "64",
@@ -3170,6 +3404,9 @@ BENCH_LAUNCHES = {"bench_serving": 0, "bench_pred_pipeline": 4 * 8,
                   "bench_host_pipeline": 2 * ACCUM * 7,
                   "profile_step_pretrain": 2 * ACCUM * 4,
                   "profile_step_pred": 4 * 4}
+#: the scripts that augment (one photometric tail a microbatch, half their
+#: kernel 1 launches); the predictor's two-pass batches do not
+BENCH_AUGMENT = ("bench_host_pipeline", "profile_step_pretrain")
 #: the multichip phase: weak scaling at the recipe's accum (FIRST_STEP_LOSS
 #: is accum 16's first step) cut to one timed step; the streams' launches
 MULTICHIP_ITERS, STREAM_ITERS = 1, 20
@@ -3236,7 +3473,15 @@ def phase_accuracy(torch, dev):
               f"accuracy: {name} loss not finite")
         check(phase.get("frozen_backbone_bitexact", True),
               f"accuracy: {name} moved the frozen backbone")
-    others = {k: v for k, v in chain_counts.items() if k != "shift_lerp_grouped"}
+    # every phase but the leaderboard's augments: a photometric tail an
+    # apply, two shifts
+    applies = sum(phase["kernel1_launches"] for name, phase in
+                  chain["phases"].items()
+                  if not name.startswith("leaderboard")) // 2
+    check(chain_counts["photometric"] == applies, f"accuracy: photometric "
+          f"launched {chain_counts['photometric']} times, want {applies}")
+    others = {k: v for k, v in chain_counts.items()
+              if k not in ("shift_lerp_grouped", "photometric")}
     check(not any(others.values()), f"accuracy: other kernels ran {others}")
     check(not loop_waits, f"accuracy: host waits in the loops {loop_waits}")
 
@@ -3294,11 +3539,11 @@ def accuracy_rn152(torch, dev) -> dict:
         counts = kernel_counts()
         check(all(math.isfinite(v) for v in losses),
               f"accuracy rn152: {kind} losses {losses}")
+        want = augment_launches("shift_lerp_grouped", ACCUM * RN152_STEPS)
         for kname, launched in counts.items():
-            want = (2 * ACCUM * RN152_STEPS
-                    if kname == "shift_lerp_grouped" else 0)
-            check(launched == want, f"accuracy rn152: {kind} launched "
-                  f"{kname} {launched} times, want {want}")
+            check(launched == want.get(kname, 0), f"accuracy rn152: {kind} "
+                  f"launched {kname} {launched} times, want "
+                  f"{want.get(kname, 0)}")
         out[kind] = {"step_ms": [(b - a) * 1e3
                                  for a, b in zip(stamps, stamps[1:])],
                      "losses": losses, "launches": counts}
@@ -3379,8 +3624,11 @@ def phase_bench_scripts(torch, dev):
             check(counts["shift_lerp_grouped"] == BENCH_LAUNCHES[name],
                   f"{name}: kernel 1 launched {counts['shift_lerp_grouped']} "
                   f"times, want {BENCH_LAUNCHES[name]}")
+            photo = BENCH_LAUNCHES[name] // 2 if name in BENCH_AUGMENT else 0
+            check(counts["photometric"] == photo, f"{name}: photometric "
+                  f"launched {counts['photometric']} times, want {photo}")
             others = {k: v for k, v in counts.items()
-                      if k != "shift_lerp_grouped" and v}
+                      if k not in ("shift_lerp_grouped", "photometric") and v}
             check(not others, f"{name}: other kernels ran {others}")
             check(not window_waits, f"{name}: host waits inside a timed "
                   f"window {window_waits}")
@@ -4189,7 +4437,7 @@ POISON_KERNEL_OF = (
     ("kernel3", "shift_lerp_flat"), ("kernel4", "shift_lerp_matmul"),
     ("tap_band", "shift_lerp_matmul"), ("stream_copy", "stream_copy"),
     ("stream_add", "stream_add"), ("stream_bn_res_relu", "stream_bn_res_relu"),
-    ("stream_stats", "stream_stats"))
+    ("stream_stats", "stream_stats"), ("photometric", "photometric"))
 
 
 def phase_poison(torch, dev) -> dict:
@@ -4200,7 +4448,8 @@ def phase_poison(torch, dev) -> dict:
     Returns {kernels line row: {cases, bit_equal, patterns}}."""
     t_phase = time.perf_counter()
     rows = []
-    for source in (repeat_cases, ragged_cases, stream_cases):
+    for source in (repeat_cases, ragged_cases, stream_cases,
+                   photometric_cases):
         cases = source(torch, dev)
         rows += [poison_case(torch, dev, *case) for case in cases]
         del cases
@@ -4358,8 +4607,11 @@ def phase_bench_guard(torch, dev):
             check(value is not None and math.isfinite(value) and value > 0,
                   f"bench_guard {name}: {key} = {value}")
     runs = profile_step.WARMUP + iters  # a timed window's calls
+    # recipe steps and fine-tune steps augment (two shifts and one
+    # photometric tail an apply); two-pass batches shift 4 times
     want = {"shift_lerp_grouped": 2 * 2 * ACCUM * runs
-            + (2 + 4) * (runs + iters)}
+            + (2 + 4) * (runs + iters),
+            "photometric": 2 * ACCUM * runs + (runs + iters)}
     for kname, launched in counts.items():
         check(launched == want.get(kname, 0), f"bench_guard: {kname} "
               f"launched {launched} times, want {want.get(kname, 0)}")
@@ -4472,7 +4724,7 @@ def main() -> int:
     # ---- 2. build --------------------------------------------------------
     t0 = time.perf_counter()
     per_source = build.build(["shift_lerp", "shift_lerp_matmul", "streams",
-                              "jpeg_decode"])
+                              "photometric", "jpeg_decode"])
     emit("build", seconds=time.perf_counter() - t0, per_source=per_source,
          arch="sm_90a", host_sources=["jpeg_decode"])
     # ---- 2a. the port's JPEG decode pool on this host ----------------------
@@ -4484,6 +4736,7 @@ def main() -> int:
     matmul_rows = phase_matmul_kernel(torch, dev)
     nonfinite_rows = phase_matmul_nonfinite(torch, dev)
     phase_tf32(torch, dev)
+    photometric_run = phase_photometric(torch, dev)
 
     # ---- 4. warp at the pred_fh geometry -------------------------------------
     frames = seeded_frames(N_FRAMES, SEED)
@@ -4811,6 +5064,7 @@ def main() -> int:
                 nonfinite={r["case"]: r["device_ms"] for r in nonfinite_rows},
                 nonfinite_max_abs=max(r["max_abs"] for r in nonfinite_rows)),
         *multichip_run["kernel_rows"],
+        photometric_row(photometric_run, pretrain_runs, finetune_run),
     ]
     for row in kernels:
         row["poison"] = poison[row["name"]]
@@ -4941,7 +5195,8 @@ def poison_main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     CARD = card_line()
-    build.build(["shift_lerp", "shift_lerp_matmul", "streams"])
+    build.build(["shift_lerp", "shift_lerp_matmul", "streams",
+                 "photometric"])
     phase_poison(torch, resolve_device("cuda"))
     print(CARD, flush=True)
     return 0

@@ -29,7 +29,6 @@ from peclr_tpu_torch.geometry.camera import (
     move_wrist_to_palm,
 )
 from peclr_tpu_torch.ops import augment
-from peclr_tpu_torch.ops.image import normalize_imagenet
 from peclr_tpu_torch.train.loop import stream_generator
 
 Draws = Dict[str, torch.Tensor]
@@ -52,7 +51,7 @@ def supervised_sample_batch(
     if draws is None:
         draws = augment.draw(generator, images.shape[0], flags, params)
     out = augment.apply(images, batch["joints25d"], draws, flags, params,
-                        compute_dtype=compute_dtype)
+                        compute_dtype=compute_dtype, normalize=True)
     K_new = torch.einsum("bij,bjk->bik", out.matrix, batch["K"].float())
     joints3d = batch["joints3d"]
     scale = batch["scale"]
@@ -63,7 +62,7 @@ def supervised_sample_batch(
         joints25d, scale = convert_to_2_5d(K_new, joints3d)
         joints_raw = move_wrist_to_palm(joints_raw)
     return {
-        "image": normalize_imagenet(out.images),
+        "image": out.images,
         "joints": joints25d,
         "joints3D": joints3d,
         "K": K_new,

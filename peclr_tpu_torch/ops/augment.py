@@ -3,7 +3,10 @@ peclr_tpu/ops/augment.py, all 11 flags).
 
 In the reference's order: sobel -> cut-out -> blur -> the geometric chain
 (rotate ∘ crop ∘ resize, one affine map per sample, applied by the warp) ->
-colour jitter -> noise -> colour drop.  The per-sample parameters that the
+colour jitter -> noise -> colour drop -> /255 -> [ImageNet normalisation],
+this photometric tail one kernel on the card (ops/photometric.py), inside
+a `warp.photometric` span (the warp's kind: it runs inside whatever step
+span is open, as `warp.shift` does).  The per-sample parameters that the
 equivariant loss inverts come out beside the views.
 
 torch cannot replay jax.random, so each transform is split in two:
@@ -36,9 +39,11 @@ import torch
 from peclr_tpu_torch.config.defaults import AugmentationFlags, AugmentationParams
 from peclr_tpu_torch.geometry.affine import rotation_about_center
 from peclr_tpu_torch.ops import image as im
+from peclr_tpu_torch.ops.photometric import photometric
 from peclr_tpu_torch.ops.warp import affine_warp as affine_warp_gather
 from peclr_tpu_torch.ops.warp_mxu import ROUTES as MXU_ROUTES
 from peclr_tpu_torch.ops.warp_mxu import affine_warp_mxu
+from peclr_tpu_torch.utils.profiler import span
 
 #: the warp routes: the two-pass warp's three, then the gather warp
 ROUTES = MXU_ROUTES + ("gather",)
@@ -162,26 +167,21 @@ def draw(generator: torch.Generator, n: int, flags: AugmentationFlags,
     return d
 
 
-def _where(flag: torch.Tensor, on: torch.Tensor,
-           off: torch.Tensor) -> torch.Tensor:
-    """Per sample, `on` where the 0/1 coin flag (B,) is 1, else `off`."""
-    return torch.where(flag[:, None, None, None] > 0, on, off)
-
-
 @torch.no_grad()
 def apply(images_u8: torch.Tensor, joints25d: torch.Tensor,
           draws: Dict[str, torch.Tensor], flags: AugmentationFlags,
           params: AugmentationParams, force_crop: bool = False,
           zero_jitter: bool = False, route: str = "grouped",
-          compute_dtype: Optional[torch.dtype] = None) -> AugmentOutput:
+          compute_dtype: Optional[torch.dtype] = None,
+          normalize: bool = False) -> AugmentOutput:
     """Transform one batch (one contrastive view) with the given draws.
 
     images_u8 (B, H, W, 3) uint8 canvases; joints25d (B, 21, 3) keypoints
     in source pixels (z untouched).  force_crop / zero_jitter: a crop always
     runs for contrastive samples, with its jitter pinned to 0 when the crop
     flag is off.  `route` is one of ROUTES.  Views come out at
-    params.resize_shape, in [0, 1]; `params` of the output holds
-    PARAM_KEYS."""
+    params.resize_shape, in [0, 1], or ImageNet-normalised with
+    `normalize`; `params` of the output holds PARAM_KEYS."""
     if route not in ROUTES:
         raise ValueError(f"route={route!r}, want one of {ROUTES}")
     b, src_h, src_w, _ = images_u8.shape
@@ -196,14 +196,15 @@ def apply(images_u8: torch.Tensor, joints25d: torch.Tensor,
         x = images_u8.to(torch.float32)
 
     if flags.sobel_filter:
-        x = _where(d["sobel_flag"], im.sobel_filter(x, params.sobel_kernel), x)
+        x = im.where_flag(d["sobel_flag"],
+                          im.sobel_filter(x, params.sobel_kernel), x)
     if flags.cut_out:
         joint = d["cut_out_joint"].long()
         anchor = joints[torch.arange(b, device=device), joint, :2]
         cut = im.cutout(x, anchor, d["cut_out_fraction"], d["cut_out_fill"])
-        x = _where(d["cut_out_flag"], cut, x)
+        x = im.where_flag(d["cut_out_flag"], cut, x)
     if flags.gaussian_blur:
-        x = _where(d["blur_flag"], im.gaussian_blur(x, d["sigma"]), x)
+        x = im.where_flag(d["blur_flag"], im.gaussian_blur(x, d["sigma"]), x)
 
     # rotation about the truncated keypoint centroid
     angle = d["angle"]
@@ -255,17 +256,18 @@ def apply(images_u8: torch.Tensor, joints25d: torch.Tensor,
     ], dim=-1)
     joints = torch.cat([joints_xy, joints[..., 2:]], dim=-1)
 
-    if flags.color_jitter:
-        x = im.color_jitter(x, d["h"], d["s"], d["a"], d["b"])
-    if flags.gaussian_noise:
-        x = _where(d["noise_flag"],
-                   im.gaussian_noise(x, d["noise"], params.noise_std), x)
-    if flags.color_drop:
-        x = _where(d["drop_flag"], im.grayscale(x), x)
+    noise = flags.gaussian_noise
+    with span("warp.photometric"):
+        x = photometric(x, d["h"], d["s"], d["a"], d["b"],
+                        noise=d["noise"] if noise else None,
+                        noise_flag=d["noise_flag"] if noise else None,
+                        drop_flag=d["drop_flag"] if flags.color_drop else None,
+                        jitter=flags.color_jitter, normalize=normalize,
+                        noise_std=params.noise_std)
     out_params = {k: d[k] for k in PARAM_KEYS}
     out_params.update(angle=angle, jitter_x=reported[:, 0],
                       jitter_y=reported[:, 1], crop_margin_scale=margin)
-    return AugmentOutput(images=x / 255.0, joints=joints, matrix=matrix,
+    return AugmentOutput(images=x, joints=joints, matrix=matrix,
                          params=out_params)
 
 
@@ -286,10 +288,7 @@ def augment_pair(generator: Optional[torch.Generator], images_u8: torch.Tensor,
     both = apply(torch.cat([images_u8, images_u8]),
                  torch.cat([joints25d, joints25d]), draws, flags, params,
                  force_crop=True, zero_jitter=not flags.crop, route=route,
-                 compute_dtype=compute_dtype)
-    if normalize:
-        both = dataclasses.replace(both,
-                                   images=im.normalize_imagenet(both.images))
+                 compute_dtype=compute_dtype, normalize=normalize)
 
     def half(i):
         sl = slice(i * b, (i + 1) * b)

@@ -43,6 +43,12 @@ def denormalize_imagenet(images: torch.Tensor) -> torch.Tensor:
     return images * std + mean
 
 
+def where_flag(flag: torch.Tensor, on: torch.Tensor,
+               off: torch.Tensor) -> torch.Tensor:
+    """Per sample, `on` where the 0/1 coin flag (B,) is 1, else `off`."""
+    return torch.where(flag[:, None, None, None] > 0, on, off)
+
+
 def _gray(images: torch.Tensor) -> torch.Tensor:
     """(B, H, W, 3) -> (B, H, W) with the storage-order cv2 weights."""
     w = device_constant(_GRAY_W, images.device)

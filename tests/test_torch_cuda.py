@@ -1172,7 +1172,9 @@ POISON_CASES = [
     "kernel4_ragged_bf16_src_bf16_taps", "kernel4_ragged_bf16_src_f32_taps",
     "tap_band_ragged_bf16", "tap_band_ragged_f32",
     "stream_copy_ragged_bfloat16", "stream_add_ragged_bfloat16",
-    "stream_bn_res_relu_ragged_bfloat16", "stream_stats_ragged_bfloat16"]
+    "stream_bn_res_relu_ragged_bfloat16", "stream_stats_ragged_bfloat16",
+    "photometric_ragged_planes_w130", "photometric_ragged_planes_h77",
+    "photometric_ragged_nhwc_7x13x36", "photometric_ragged_planes_no_jitter"]
 
 
 @pytest.mark.parametrize("name", POISON_CASES)
@@ -1194,7 +1196,8 @@ def test_poisoned_buffers_leave_the_output_unchanged(card, name):
     ragged = [s for s in chip_smoke.STREAM_POISON_SHAPES if s[0] == "ragged"]
     cases = {n: (launch, plain) for n, launch, plain in
              chip_smoke.ragged_cases(torch, card)
-             + chip_smoke.stream_cases(torch, card, ragged)}
+             + chip_smoke.stream_cases(torch, card, ragged)
+             + chip_smoke.photometric_cases(torch, card)}
     row = chip_smoke.poison_case(torch, card, name, *cases[name])
     assert row["differing_patterns"] == []
     assert row["poisoned_buffers"] == [f"{row['buffers']}/{row['buffers']}"] * 3

@@ -39,6 +39,8 @@ STREAMS = [f"stream_{op}_ragged_{dtype}"
            for op in ("copy", "add", "bn_res_relu", "stats")]
 RAGGED_STREAM_SHAPES = [s for s in chip_smoke.STREAM_POISON_SHAPES
                         if s[0] == "ragged"]
+PHOTOMETRIC = [f"photometric_ragged_{case[0]}"
+               for case in chip_smoke.PHOTOMETRIC_RAGGED]
 
 
 def _ragged():
@@ -97,15 +99,41 @@ def test_ragged_stream_case_on_the_cpu(name):
         assert chip_smoke.same_bits(torch, got, want)
 
 
+def test_photometric_cases_are_the_listed_ones():
+    assert PHOTOMETRIC == ["photometric_ragged_planes_w130",
+                           "photometric_ragged_planes_h77",
+                           "photometric_ragged_nhwc_7x13x36",
+                           "photometric_ragged_planes_no_jitter"]
+    assert [n for n, _, _ in chip_smoke.photometric_cases(torch, CPU)] == (
+        PHOTOMETRIC)
+
+
+@pytest.mark.parametrize("case", chip_smoke.PHOTOMETRIC_RAGGED,
+                         ids=PHOTOMETRIC)
+def test_photometric_case_on_the_cpu(case):
+    """Kernel 5's ragged cases: launch equal to plain, on the case's shape
+    and layout."""
+    name = f"photometric_ragged_{case[0]}"
+    launch, plain = {n: (lc, pl) for n, lc, pl in
+                     chip_smoke.photometric_cases(torch, CPU)}[name]
+    got = launch()
+    assert chip_smoke.same_bits(torch, got, plain())
+    x = {n: x for n, x, _, _ in
+         chip_smoke.photometric_ragged_inputs(torch, CPU)}[name]
+    _, shape, planes, _ = case
+    assert tuple(x.shape) == (*shape, 3)
+    assert x.is_contiguous() != planes
+
+
 def test_every_case_has_a_kernels_line_row():
     rows = {"shift_lerp_grouped", "shift_raw_grouped", "shift_lerp_flat",
             "shift_lerp_matmul", "stream_copy", "stream_add",
-            "stream_bn_res_relu", "stream_stats"}
+            "stream_bn_res_relu", "stream_stats", "photometric"}
     recipe = ["kernel1_pass1_u8_to_bf16", "kernel1_pass2_bf16_to_bf16",
               "kernel2_raw_pass1_u8", "kernel3_pass1_u8_to_bf16",
               "kernel4_pass1_bf16_taps", "kernel4_pass1_f32_taps"]
     seen = set()
-    for name in recipe + RAGGED + STREAMS:
+    for name in recipe + RAGGED + STREAMS + PHOTOMETRIC:
         kernel = next(k for prefix, k in chip_smoke.POISON_KERNEL_OF
                       if name.startswith(prefix))
         seen.add(kernel)

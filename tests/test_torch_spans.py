@@ -111,9 +111,11 @@ def test_a_pretrain_step_holds_its_phases():
     assert children(spans, "pretrain.microbatch") == {
         "pretrain.augment": 2, "pretrain.forward": 2, "pretrain.loss": 2,
         "pretrain.backward": 2}
-    # one warp a microbatch, two shift passes a warp
-    assert children(spans, "pretrain.augment") == {"warp.shift": 4}
-    assert len(spans) == 3 + 2 * 5 + 4
+    # one warp a microbatch, two shift passes a warp, then one photometric
+    # tail a microbatch
+    assert children(spans, "pretrain.augment") == {"warp.shift": 4,
+                                                   "warp.photometric": 2}
+    assert len(spans) == 3 + 2 * 5 + 4 + 2
     names = [n for n, _ in spans]
     assert names[:3] == ["pretrain.step", "pretrain.zero_grad",
                          "pretrain.microbatch"]
@@ -133,7 +135,8 @@ def test_a_finetune_step_holds_its_six_phases():
     assert children(spans, None) == {"finetune.step": 1}
     assert [n for n, p in spans if p == "finetune.step"] == [
         f"finetune.{phase}" for phase in FINETUNE_PHASES]
-    assert children(spans, "finetune.augment") == {"warp.shift": 2}
+    assert children(spans, "finetune.augment") == {"warp.shift": 2,
+                                                   "warp.photometric": 1}
 
 
 @pytest.mark.parametrize("route", ["grouped", "nhwc", "matmul"])
