@@ -54,6 +54,19 @@ one JSON line that carries the card's name and power limit:
               value within 1e-6 (samples whose coin is 0 bit for bit);
               one launch an augment_pair; kernel, device, plain and bound
               times
+ 3g. batch_norm_act  kernel 6, the trunk's train-mode BatchNorm with its
+              residual add and ReLU (statistics, apply, backward reduce and
+              elementwise passes), at the RN50 trunk's 53 BatchNorm shapes
+              of the pretrain cell's microbatch (1,024 views of 128², bf16):
+              each kernel against its plain version (the statistics within
+              1e-7 of float64, the apply bit for bit given them, the
+              backward's sums within 1e-4 of float64's, dx and the
+              residual's gradient bit for bit given the sums), then its
+              profiler device ms beside its bytes bound, the old chain's
+              (F.batch_norm, the running statistics' lerps, the add, the
+              ReLU, forward and backward) and F.batch_norm's, and the
+              trunk's totals a microbatch; the same comparison at layer 1's
+              bn3 in f32
   4. warp     affine_warp_mxu at the pred_fh geometry, kernel against plain,
               both in bf16 on the card: max abs <= 2.5 (the TPU's bound for
               the same comparison); then the pretrain geometry (256 seeded
@@ -66,7 +79,7 @@ one JSON line that carries the card's name and power limit:
               lerp in the kernel and in its raw mode, in turns; launch
               counts, img/s, peak memory, the time of each stage of one
               batch; agreement with the plain path and with the CPU on a
-              small input
+              small input; kernels 3-6 launched none
   6. serving  InferenceSession (batch 32, 128 px) on a few requests
  6a. host_waits  the host's waits on the card, after one call of each path:
               the pretrain step (RN18, 64 -> 32, accum 2) with the recipe's
@@ -81,12 +94,15 @@ one JSON line that carries the card's name and power limit:
               call it blocked in named)
   7. pretrain the RN50 PeCLR pretrain step (microbatch 128 x accum 16, bf16
               autocast) on the warp routes in turns; img/s, ms per step,
-              peak memory, launch counts (2 x accum of the route's kernel a
-              step, none of the others'), where one microbatch's time goes;
+              peak memory, launch counts (2 x accum of the route's kernel, 1
+              x accum of kernel 5 and 53 x accum of each of kernel 6's four
+              a step, none of the others'), where one microbatch's time goes;
               the routes' first-step losses from one state and the same
               draws within 1e-2; the card against the CPU at the dry-run
               shape (RN18, 64 -> 32, accum 2, f32): loss and BatchNorm
-              running statistics within 1e-3
+              running statistics within 1e-3; one step of the benchmark's
+              pretrain cell (512 x 4), its counts set to 0 just before: 8
+              of kernel 1, 4 of kernel 5, 212 of each of kernel 6's
  7a. pretrain_f32_matmul  one RN50 recipe step at precision="f32" (TF32
               off) on the matmul route, kernel 4 with f32 taps (32
               launches), after one warm-up step, against the same step on
@@ -110,8 +126,10 @@ one JSON line that carries the card's name and power limit:
               rows and outputs off the 16-byte vector, kernel 4 with a bf16
               source, four planes, R = 97, M = 77, U = 131), the band pass
               alone, the four stream ops (bench_streams' shape and a
-              ragged one, bf16 and f32) and kernel 5 at four ragged
-              shapes, each launched as it is and then
+              ragged one, bf16 and f32), kernel 5 at four ragged
+              shapes and kernel 6's four kernels at C = 37 (the scalar
+              path) and C = 64 with odd row counts, bf16 and f32, each
+              launched as it is and then
               after the caching allocator's free blocks of the sizes it
               allocates were filled with 0x00, 0xFF (NaN in bf16 and f32, -1
               in the band scratch) and 0xA5: every buffer the wrapper
@@ -183,13 +201,15 @@ one JSON line that carries the card's name and power limit:
               draws), then the RN50 recipe step (global 128 x 16, 64 rows a
               rank, bf16, grouped route; first-step loss within 1e-2 of
               phase 7's), each with the ranks' states equal to the bit and
-              kernel 1 launched 2 x accum times a step on each rank, no
-              other kernel; then the pretraining CLI under
+              kernel 1 launched 2 x accum times a step on each rank, kernel
+              5 accum times, kernel 6's sums once a trunk BatchNorm a
+              microbatch, no other kernel; then the pretraining CLI under
               torch.distributed.run with one rank and NCCL at the trainer
               phase's argv for one epoch more (this script re-entered with
               --ddp-cli): per epoch the losses, img/s, ms, wait, peak
               memory and launches (kernel 1: 2 x 16 a step + 2 a
-              validation batch), epoch 0's loss within 1e-2 of the trainer
+              validation batch; kernel 6's sums 53 x 16 a step), epoch 0's
+              loss within 1e-2 of the trainer
               phase's, rank 0's one checkpoint write an epoch; the last
               epoch profiled (busy share, top host ops, all-reduce calls,
               NCCL kernels); the host and device ms of an all-reduce and of
@@ -311,7 +331,7 @@ PRETRAIN_ROUTES = ("grouped", "matmul", "nhwc")
 PRETRAIN_STEPS = {"grouped": 3, "matmul": 3, "nhwc": 1}  # timed, after 1 warm-up
 #: first-step losses of the pretrain phase as PERF.md records them: the
 #: routes from one seeded state with the same draws
-FIRST_STEP_LOSS = {"grouped": 5.561449, "nhwc": 5.561449, "matmul": 5.561674}
+FIRST_STEP_LOSS = {"grouped": 5.562462, "nhwc": 5.562462, "matmul": 5.562018}
 TRAINER_FIXTURE = os.path.join("tests", "fixtures", "torch_freihand_like",
                                "freihand_dataset")
 TRAINER_ARGV = ["--rotate", "--crop", "--color_jitter", "--resize",
@@ -391,14 +411,19 @@ def device_ms(fn, reps: int):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    spans = [e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
-    return sum(spans) / reps / 1e3 if spans else None
+    # a capture now and then holds none of the card's events (seen once at
+    # a kernel of a few microseconds): capture again before giving up
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        spans = [e.time_range.end - e.time_range.start for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if spans:
+            return sum(spans) / reps / 1e3
+    return None
 
 
 @contextlib.contextmanager
@@ -430,7 +455,16 @@ def shift_paths():
             "flat": fused_shift_lerp.last_path}
 
 
+#: kernel 6's wrappers (ops/batch_norm_act.py), by their kernels line name:
+#: the four passes of a train-mode BatchNorm without a mesh
+BATCH_NORM_ACT = ("batch_norm_stats", "batch_norm_apply",
+                  "batch_norm_backward_reduce", "batch_norm_backward_elemt")
+#: and the statistics pass's sums alone, a BatchNorm across a mesh's ranks
+BATCH_NORM_MOMENTS = "batch_norm_moments"
+
+
 def kernel_counts():
+    from peclr_tpu_torch.ops import batch_norm_act
     from peclr_tpu_torch.ops.shift_lerp import (
         fused_shift_lerp,
         fused_shift_lerp_grouped,
@@ -442,20 +476,45 @@ def kernel_counts():
             "shift_raw_grouped": fused_shift_lerp_grouped.raw_launches,
             "shift_lerp_flat": fused_shift_lerp.launches,
             "shift_lerp_matmul": fused_shift_lerp_matmul.launches,
-            "photometric": photometric.launches}
+            "photometric": photometric.launches,
+            **{name: getattr(batch_norm_act, name).launches
+               for name in BATCH_NORM_ACT + (BATCH_NORM_MOMENTS,)}}
 
 
-def augment_launches(kernel, applies: int) -> dict:
+@functools.lru_cache(maxsize=None)
+def trunk_batch_norms(resnet: str) -> int:
+    """The BatchNorms of a ResNet trunk of this size (RN18 20, RN50 53,
+    RN152 155): each launches kernel 6's four kernels once a train-mode
+    forward and backward of a channels-last batch on the card."""
+    from peclr_tpu_torch.models.batchnorm import BatchNorm2d
+    from peclr_tpu_torch.models.resnet import ResNetEncoder
+
+    return sum(isinstance(m, BatchNorm2d)
+               for m in ResNetEncoder(resnet).modules())
+
+
+def augment_launches(kernel, applies: int, trained: int = 0,
+                     resnet: str = "50", meshed: int = 0) -> dict:
     """The launches of `applies` calls of augment.apply on the route whose
     shift kernel is `kernel` (None: the gather warp): two shift passes and
-    one photometric tail each; every other kernel none."""
+    one photometric tail each; of `trained` train-mode forwards and
+    backwards of the `resnet` trunk on channels-last views: each of kernel
+    6's four kernels once a BatchNorm; and of `meshed` such forwards across
+    a mesh's ranks: kernel 6's sums once a BatchNorm.  Every other kernel
+    none."""
     want = {"photometric": applies}
     if kernel is not None:
         want[kernel] = 2 * applies
+    if trained:
+        want.update(dict.fromkeys(BATCH_NORM_ACT,
+                                  trained * trunk_batch_norms(resnet)))
+    if meshed:
+        want[BATCH_NORM_MOMENTS] = meshed * trunk_batch_norms(resnet)
     return want
 
 
 def reset_counts() -> None:
+    from peclr_tpu_torch.ops import batch_norm_act
     from peclr_tpu_torch.ops.shift_lerp import (
         fused_shift_lerp,
         fused_shift_lerp_grouped,
@@ -468,6 +527,8 @@ def reset_counts() -> None:
     fused_shift_lerp.launches = 0
     fused_shift_lerp_matmul.launches = 0
     photometric.launches = 0
+    for name in BATCH_NORM_ACT + (BATCH_NORM_MOMENTS,):
+        getattr(batch_norm_act, name).launches = 0
     fused_shift_lerp_grouped.last_path = None
     fused_shift_lerp.last_path = None
 
@@ -1300,7 +1361,9 @@ def profile_step(torch, step, state, batch, gen):
 
 
 def phase_pretrain(torch, dev):
-    """The RN50 PeCLR pretrain step on the card, its routes in turns."""
+    """The RN50 PeCLR pretrain step on the card, its routes in turns, then
+    one step of the benchmark's pretrain cell (pretrain_mb512_step).
+    Returns the routes' runs and that step's."""
     from peclr_tpu_torch.config.defaults import (
         AugmentationParams,
         peclr_pretrain_flags,
@@ -1362,7 +1425,7 @@ def phase_pretrain(torch, dev):
             seconds = time.perf_counter() - t0
             counts = kernel_counts()
             check(math.isfinite(loss), f"{route}: loss not finite")
-            want = augment_launches(kernel_of[route], ACCUM)
+            want = augment_launches(kernel_of[route], ACCUM, ACCUM)
             for kname, launched in counts.items():
                 check(launched == want.get(kname, 0), f"{route}: {kname} "
                       f"launched {launched} times in a step, want "
@@ -1379,15 +1442,53 @@ def phase_pretrain(torch, dev):
                 "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
                 "allocated_before_bytes": before,
             })
+    mb512 = pretrain_mb512_step(torch, dev, model, opt, state, batch, gen)
     state, profiled = profile_step(torch, steps["grouped"], state, batch, gen)
     breakdown = {route: microbatch_breakdown(torch, model, opt, batch,
                                              draws[0], route)
                  for route in ("grouped", "matmul")}
     emit("pretrain", model="PeCLR RN50 + projection head, bf16 autocast",
          microbatch=MICROBATCH, accum=ACCUM, images_per_step=n,
-         first_step_loss=first_loss, runs=runs,
+         first_step_loss=first_loss, runs=runs, mb512_step=mb512,
          microbatch_breakdown_ms=breakdown, profiled_grouped_step=profiled)
-    return runs
+    return runs, mb512
+
+
+#: the benchmark's pretrain cell: 512 canvases a microbatch, 4 a step
+MB512, MB512_ACCUM = 512, 4
+
+
+def pretrain_mb512_step(torch, dev, model, opt, state, batch, gen) -> dict:
+    """One step of the benchmark's pretrain cell (MB512 x MB512_ACCUM on
+    the grouped route, the same 2,048 canvases), after a warm-up step, its
+    counts set to 0 just before and read just after: kernel 1 twice and
+    kernel 5 once a microbatch, each of kernel 6's four kernels once a
+    BatchNorm of the RN50 trunk a microbatch (53 x 4), no other."""
+    from peclr_tpu_torch.config.defaults import (
+        AugmentationParams,
+        peclr_pretrain_flags,
+    )
+    from peclr_tpu_torch.train.step import make_peclr_train_step
+
+    step = make_peclr_train_step(model, opt, peclr_pretrain_flags(),
+                                 AugmentationParams(), accum=MB512_ACCUM,
+                                 warp_route="grouped")
+    state, _ = step(state, batch, gen)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    state, metrics = step(state, batch, gen)
+    loss = metrics["loss"].item()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = kernel_counts()
+    check(math.isfinite(loss), "mb512: loss not finite")
+    want = augment_launches("shift_lerp_grouped", MB512_ACCUM, MB512_ACCUM)
+    for kname, launched in counts.items():
+        check(launched == want.get(kname, 0), f"mb512: {kname} launched "
+              f"{launched} times in a step, want {want.get(kname, 0)}")
+    return {"microbatch": MB512, "accum": MB512_ACCUM, "loss": loss,
+            "launches": counts, "ms_per_step": seconds * 1e3}
 
 
 def step_vs_cpu(torch, dev, flags, routes, seed):
@@ -1774,7 +1875,7 @@ def phase_trainer(torch, dev, root):
               f"trainer epoch {epoch}: loss not finite")
         before = snaps[epoch - 1] if epoch else {k: 0 for k in counts}
         launched = {k: snaps[epoch][k] - before[k] for k in counts}
-        want = augment_launches("shift_lerp_grouped", per_epoch // 2)
+        want = augment_launches("shift_lerp_grouped", per_epoch // 2, ACCUM)
         for kname, n in launched.items():
             check(n == want.get(kname, 0), f"trainer epoch {epoch}: {kname} "
                   f"launched {n} times, want {want.get(kname, 0)}")
@@ -1848,7 +1949,7 @@ def phase_trainer(torch, dev, root):
           f"{dict(replay.pipeline.decode_paths)}")
     replay_launched = kernel_counts()
     check(replay_launched == {k: augment_launches(
-        "shift_lerp_grouped", per_epoch // 2).get(k, 0)
+        "shift_lerp_grouped", per_epoch // 2, ACCUM).get(k, 0)
         for k in replay_launched}, f"replay launches {replay_launched}")
     emit("trainer", data="FreiHAND-layout fixture " + TRAINER_FIXTURE,
          decoder=probe["decoder"], pair_figure=bool(figure),
@@ -2268,7 +2369,7 @@ def ablation_routes(torch, dev):
         seconds = time.perf_counter() - t0
         counts = kernel_counts()
         check(math.isfinite(loss), f"all-flags {route}: loss not finite")
-        want = augment_launches(kernel_of[route], ACCUM)
+        want = augment_launches(kernel_of[route], ACCUM, ACCUM)
         for kname, launched in counts.items():
             check(launched == want.get(kname, 0), f"all-flags {route}: "
                   f"{kname} launched {launched} times in a step, want "
@@ -2370,7 +2471,7 @@ def phase_ablation(torch, dev):
               f"{rec['loss']}, val {val['loss']}")
         before = snaps[epoch - 1] if epoch else {k: 0 for k in counts}
         launched = {k: snaps[epoch][k] - before[k] for k in counts}
-        want = augment_launches("shift_lerp_grouped", per_epoch // 2)
+        want = augment_launches("shift_lerp_grouped", per_epoch // 2, ACCUM)
         for kname, n in launched.items():
             check(n == want.get(kname, 0), f"ablation epoch {epoch}: {kname} "
                   f"launched {n} times, want {want.get(kname, 0)}")
@@ -2605,7 +2706,8 @@ def ddp_host_costs(mesh, reps: int = 200) -> dict:
 def ddp_two_ranks(torch, dev, case: str, one: dict) -> dict:
     """The case on two gloo ranks on the card against one process (`one`,
     the same step on the card): loss, parameters bit-equal across ranks,
-    kernel 1 2 x accum times on each rank and no other kernel."""
+    kernel 1 2 x accum times on each rank, kernel 5 accum times, kernel
+    6's sums once a trunk BatchNorm a microbatch, and no other kernel."""
     from peclr_tpu_torch.parallel.dryrun import spawn
 
     c = ddp_case(case)
@@ -2618,7 +2720,8 @@ def ddp_two_ranks(torch, dev, case: str, one: dict) -> dict:
               f"ddp {case} rank {r}: step {got['step']}, loss {got['loss']}")
         check(got["rows_a_microbatch"] == c["micro"] // 2,
               f"ddp {case} rank {r}: {got['rows_a_microbatch']} rows")
-        want = augment_launches("shift_lerp_grouped", c["accum"])
+        want = augment_launches("shift_lerp_grouped", c["accum"],
+                                resnet=c["resnet"], meshed=c["accum"])
         for kname, n in got["launches"].items():
             check(n == want.get(kname, 0), f"ddp {case} rank {r}: {kname} "
                   f"launched {n} times in a step, want {want.get(kname, 0)}")
@@ -2693,7 +2796,8 @@ def ddp_cli(torch, dev, root, trainer_run) -> dict:
             k: 0 for k in rec["counts"]}
         launched = {k: rec["snapshots"][epoch][k] - before[k]
                     for k in rec["counts"]}
-        want = augment_launches("shift_lerp_grouped", per_epoch // 2)
+        want = augment_launches("shift_lerp_grouped", per_epoch // 2,
+                                meshed=ACCUM)
         for kname, n in launched.items():
             check(n == want.get(kname, 0), f"ddp CLI epoch {epoch}: {kname} "
                   f"launched {n} times, want {want.get(kname, 0)}")
@@ -2804,7 +2908,7 @@ def phase_pretrain_f32_matmul(torch, dev):
         seconds = time.perf_counter() - t0
         counts = kernel_counts()
         check(math.isfinite(loss), f"f32 {route}: loss not finite")
-        want = augment_launches(kernel_of[route], ACCUM)
+        want = augment_launches(kernel_of[route], ACCUM, ACCUM)
         for kname, launched in counts.items():
             check(launched == want.get(kname, 0), f"f32 {route}: {kname} "
                   f"launched {launched} times in a step, want "
@@ -3372,6 +3476,347 @@ def photometric_cases(torch, dev):
             for name, x, d, jitter in photometric_ragged_inputs(torch, dev)]
 
 
+# --------------------------------------------------------------------------
+# phase 3g: kernel 6, the trunk's BatchNorm, residual add and ReLU
+
+#: the RN50 trunk's 53 BatchNorms at the pretrain cell's microbatch (N =
+#: 1,024 views of 128²): (C, H = W, what follows, how many a forward)
+RN50_BATCH_NORMS = (
+    (64, 64, "relu", 1),  # the stem
+    (64, 32, "relu", 6), (256, 32, "residual_relu", 3), (256, 32, "plain", 1),
+    (128, 32, "relu", 1), (128, 16, "relu", 7),
+    (512, 16, "residual_relu", 4), (512, 16, "plain", 1),
+    (256, 16, "relu", 1), (256, 8, "relu", 11),
+    (1024, 8, "residual_relu", 6), (1024, 8, "plain", 1),
+    (512, 8, "relu", 1), (512, 4, "relu", 5),
+    (2048, 4, "residual_relu", 3), (2048, 4, "plain", 1),
+)
+#: kernel 6's statistics against float64 at the trunk's sizes (up to 4.2 M
+#: rows a channel): f64 sums of x - K, the mean and 1/sqrt(var + eps) in f64
+#: rounded once to f32.  That rounding is at most 2^-24 (6.0e-8) of the
+#: value, and of the mean at most that of the channel's rms; f64's own error
+#: (~1e-13, times 1 + (mean-K)²/var in var = E[(x-K)²] - E[x-K]²) leaves
+#: room under 1e-7 for both
+BN_ACT_MEAN_TOL, BN_ACT_INVSTD_TOL = 1e-7, 1e-7
+#: the backward's sums: f32, each thread adding up to ~500 rows in a chain,
+#: then trees (~500 roundings of 6e-8 at their worst), over the largest
+#: |sum| of the row (sums of dy' of either sign)
+BN_ACT_SUMS_TOL = 1e-4
+#: kernel 6's poison shapes: odd row counts over more than one row block a
+#: tile, so that the last block of a tile adds the others' partial rows;
+#: C 72 is 9 bf16 vectors (a tile of 9 lanes, 28 row lanes) and 18 f32
+BN_ACT_POISON_SHAPES = (("c72", (5, 72, 13, 11)), ("c64", (3, 64, 19, 23)))
+
+
+def bn_stats_errors(torch, x, stats) -> tuple:
+    """(mean error over the channel's rms, 1/sqrt(var + eps)'s relative
+    error), the worst channel's, against float64."""
+    xd = x.double()
+    mean = xd.mean(dim=(0, 2, 3))
+    var = (xd - mean.view(1, -1, 1, 1)).square().mean(dim=(0, 2, 3))
+    rms = xd.square().mean(dim=(0, 2, 3)).sqrt().clamp_min(1e-30)
+    inv = (var + 1e-5).rsqrt()
+    return (((stats[0].double() - mean).abs() / rms).max().item(),
+            ((stats[1].double() - inv).abs() / inv).max().item())
+
+
+def bn_sums_error(got, want) -> float:
+    """The backward reduce's rows against float64's: the worst error over
+    its row's largest magnitude."""
+    err = 0.0
+    for g, w in zip(got.double(), want.double()):
+        err = max(err, ((g - w).abs().max() / w.abs().max().clamp_min(1e-30)
+                        ).item())
+    return err
+
+
+def bn_inputs(torch, dev, shape, dtype, seed):
+    """x (channels with their own offsets and scales, as a convolution's
+    output), r, dy: (N, C, H, W) of dtype, channels-last; weight, bias."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    c = shape[1]
+    offset = torch.randn((1, c, 1, 1), generator=gen, device=dev) * 2
+    scale = torch.rand((1, c, 1, 1), generator=gen, device=dev) + 0.25
+    x = torch.randn(shape, generator=gen, device=dev) * scale + offset
+    r = torch.randn(shape, generator=gen, device=dev)
+    dy = torch.randn(shape, generator=gen, device=dev)
+    w = torch.rand(c, generator=gen, device=dev) + 0.5
+    b = torch.rand(c, generator=gen, device=dev) - 0.5
+    return tuple(t.to(dtype).contiguous(memory_format=torch.channels_last)
+                 for t in (x, r, dy)) + (w, b)
+
+
+def batch_norm_act_cases(torch, dev):
+    """[(name, launch, plain)] of kernel 6's four kernels at
+    BN_ACT_POISON_SHAPES, bf16 and f32: the statistics (plain: x, whose
+    float64 statistics hold them), the apply with a residual and the ReLU,
+    the backward's reduce with the mask recomputed from x (plain: its
+    float64 sums) and its elementwise pass with the mask read from the
+    output and the residual's gradient (plain: bit for bit)."""
+    from peclr_tpu_torch.ops import batch_norm_act as bnk
+
+    cases = []
+    for where, shape in BN_ACT_POISON_SHAPES:
+        c = shape[1]
+        for k, dtype in enumerate((torch.bfloat16, torch.float32)):
+            x, r, dy, w, b = bn_inputs(torch, dev, shape, dtype,
+                                       SEED + 43 + k)
+            rm = torch.zeros(c, device=dev)
+            rv = torch.ones(c, device=dev)
+            nbt = torch.zeros((), dtype=torch.int64, device=dev)
+            # made here (the counters too): the launches below allocate
+            # only their outputs and scratch
+            stats = bnk.batch_norm_stats(x, rm.clone(), rv.clone(), None,
+                                         1e-5, 0.1)
+            y = bnk.batch_norm_apply(x, stats, w, b, r, True)
+            sums = bnk.batch_norm_backward_reduce(dy, x, stats, w, b,
+                                                  bnk.RELU_FROM_Y, y)
+            tag = f"{where}_{str(dtype).split('.')[-1]}"
+            cases += [
+                (f"batch_norm_act_stats_{tag}",
+                 lambda x=x, rm=rm, rv=rv, nbt=nbt: bnk.batch_norm_stats(
+                     x, rm, rv, nbt, 1e-5, 0.1),
+                 lambda x=x: x),
+                (f"batch_norm_act_apply_{tag}",
+                 lambda x=x, s=stats, w=w, b=b, r=r: bnk.batch_norm_apply(
+                     x, s, w, b, r, True),
+                 lambda x=x, s=stats, w=w, b=b, r=r:
+                 bnk.batch_norm_apply_plain(x, s, w, b, r, True)),
+                (f"batch_norm_act_backward_reduce_{tag}",
+                 lambda x=x, s=stats, w=w, b=b, dy=dy:
+                 bnk.batch_norm_backward_reduce(dy, x, s, w, b,
+                                                bnk.RELU_FROM_X),
+                 lambda x=x, s=stats, w=w, b=b, dy=dy:
+                 bnk.batch_norm_backward_reduce_plain(dy, x, s, w, b,
+                                                      bnk.RELU_FROM_X)),
+                (f"batch_norm_act_backward_elemt_{tag}",
+                 lambda x=x, s=stats, w=w, b=b, dy=dy, y=y, u=sums:
+                 bnk.batch_norm_backward_elemt(dy, x, s, w, b, u,
+                                               bnk.RELU_FROM_Y, y, True)[0],
+                 lambda x=x, s=stats, w=w, b=b, dy=dy, y=y, u=sums:
+                 bnk.batch_norm_backward_elemt_plain(
+                     dy, x, s, w, b, u, bnk.RELU_FROM_Y, y, True)[0]),
+            ]
+    return cases
+
+
+def bn_case_ok(torch, name, got, ref) -> dict:
+    """Kernel 6's poison row fields: the statistics and the reduce against
+    float64 within their tolerances, the apply and elemt bit for bit."""
+    if name.startswith("batch_norm_act_stats"):
+        mean_err, inv_err = bn_stats_errors(torch, ref, got)
+        return {"ok": (mean_err <= BN_ACT_MEAN_TOL
+                       and inv_err <= BN_ACT_INVSTD_TOL),
+                "max_abs_err": max(mean_err, inv_err),
+                "tolerance": [BN_ACT_MEAN_TOL, BN_ACT_INVSTD_TOL]}
+    if name.startswith("batch_norm_act_backward_reduce"):
+        err = bn_sums_error(got, ref)
+        return {"ok": err <= BN_ACT_SUMS_TOL, "max_abs_err": err,
+                "tolerance": BN_ACT_SUMS_TOL}
+    ok = same_bits(torch, got, ref)
+    return {"ok": ok, "tolerance": 0.0, "max_abs_err": 0.0 if ok else
+            (got.float() - ref.float()).abs().max().item()}
+
+
+def old_batch_norm_chain(torch, x, r, w, b, running, relu: bool):
+    """The trunk's BatchNorm, add and ReLU as the port ran them before
+    kernel 6 (models/batchnorm.py's train-mode forward: the batch
+    statistics from F.batch_norm at momentum 1, the running statistics
+    lerped as flax's), the yardstick of phase 3g."""
+    import torch.nn.functional as F
+
+    mean = torch.zeros_like(running[0])
+    var = torch.ones_like(running[1])
+    out = F.batch_norm(x, mean, var, w, b, True, 1.0, 1e-5)
+    n = x.numel() // x.shape[1]
+    with torch.no_grad():
+        running[0].lerp_(mean, 0.1)
+        running[1].lerp_(var * ((n - 1) / n), 0.1)
+        running[2].add_(1)
+    if r is not None:
+        out = out + r
+    return torch.relu(out) if relu else out
+
+
+def bn_act_bytes(shape, dtype_size: int, mode: str) -> dict:
+    """Bytes each kernel moves at this shape: the tensors it reads and
+    writes once (per-channel vectors aside)."""
+    n = math.prod(shape) * dtype_size
+    res, y = mode == "residual_relu", mode == "residual_relu"
+    return {"stats": n, "apply": (3 if res else 2) * n,
+            "reduce": (3 if y else 2) * n,
+            "elemt": (3 + (1 if y else 0) + (1 if res else 0)) * n}
+
+
+#: kernel 6's f32 check shape (the f32 recipe phase runs the f32
+#: instantiations): layer 1's bn3 at the pretrain cell's microbatch
+BN_ACT_F32_SHAPE = (256, 32, "residual_relu")
+
+
+def bn_act_errors(torch, bnk, what, x, r, dy, w, b, stats, y, sums, mask):
+    """Kernel 6's outputs at one shape against the plain versions, each
+    checked: the statistics within BN_ACT_MEAN_TOL / BN_ACT_INVSTD_TOL of
+    float64, the apply (y, from stats) bit for bit, the reduce's sums within
+    BN_ACT_SUMS_TOL of float64's, and the elementwise pass (dx, and dr with
+    a residual) bit for bit given the sums."""
+    relu = mask != bnk.NO_RELU
+    mean_err, inv_err = bn_stats_errors(torch, x, stats)
+    check(mean_err <= BN_ACT_MEAN_TOL and inv_err <= BN_ACT_INVSTD_TOL,
+          f"batch_norm_act {what}: statistics {mean_err:.3g} / "
+          f"{inv_err:.3g} from float64")
+    apply_equal = same_bits(torch, y, bnk.batch_norm_apply_plain(
+        x, stats, w, b, r, relu))
+    check(apply_equal, f"batch_norm_act {what}: the apply differs from the "
+          "plain chain given the statistics")
+    sums_err = bn_sums_error(sums, bnk.batch_norm_backward_reduce_plain(
+        dy, x, stats, w, b, mask, y))
+    check(sums_err <= BN_ACT_SUMS_TOL, f"batch_norm_act {what}: backward "
+          f"sums {sums_err:.3g} from float64")
+    dx, dr = bnk.batch_norm_backward_elemt(dy, x, stats, w, b, sums, mask, y,
+                                           r is not None)
+    pdx, pdr = bnk.batch_norm_backward_elemt_plain(dy, x, stats, w, b, sums,
+                                                   mask, y, r is not None)
+    elemt_equal = same_bits(torch, dx, pdx) and (
+        dr is None or same_bits(torch, dr, pdr))
+    check(elemt_equal, f"batch_norm_act {what}: dx or dr differs from the "
+          "plain elementwise backward given the sums")
+    return {"stats_mean_err": mean_err, "stats_invstd_err": inv_err,
+            "apply_bit_equal": apply_equal, "reduce_sums_err": sums_err,
+            "elemt_bit_equal": elemt_equal}
+
+
+def bn_act_shape(torch, dev, bnk, c, h, mode, n, dtype):
+    """Inputs and kernel 6's forward and reduce at one trunk shape: x, r
+    (None but for the residual), dy, w, b, the running statistics, the
+    mask, stats, y and the sums."""
+    shape = (n, c, h, h)
+    x, r, dy, w, b = bn_inputs(torch, dev, shape, dtype, SEED + 60 + c + h)
+    res = r if mode == "residual_relu" else None
+    relu = mode != "plain"
+    mask = (bnk.NO_RELU if not relu else
+            bnk.RELU_FROM_Y if res is not None else bnk.RELU_FROM_X)
+    running = (torch.zeros(c, device=dev), torch.ones(c, device=dev),
+               torch.zeros((), dtype=torch.int64, device=dev))
+    stats = bnk.batch_norm_stats(x, *running, 1e-5, 0.1)
+    y = bnk.batch_norm_apply(x, stats, w, b, res, relu)
+    sums = bnk.batch_norm_backward_reduce(dy, x, stats, w, b, mask, y)
+    return x, res, dy, w, b, running, mask, stats, y, sums
+
+
+def phase_batch_norm_act(torch, dev, shapes=RN50_BATCH_NORMS, n=1024):
+    """Kernel 6 at the RN50 trunk's BatchNorm shapes of the pretrain cell's
+    microbatch in bf16: each kernel against its plain version
+    (bn_act_errors), its profiler device ms beside its bytes bound, the old
+    chain's (F.batch_norm at momentum 1, the running statistics' lerps, the
+    add, the ReLU, and their backward), and torch's F.batch_norm alone,
+    forward and backward; the trunk's totals weighted by how many
+    BatchNorms of each shape a forward has; then the same check at
+    BN_ACT_F32_SHAPE in f32."""
+    from peclr_tpu_torch.ops import batch_norm_act as bnk
+
+    rows = []
+    worst = {"stats_mean_err": 0.0, "stats_invstd_err": 0.0,
+             "reduce_sums_err": 0.0}
+    totals = {k: 0.0 for k in ("stats", "apply", "reduce", "elemt",
+                               "stats_bound", "apply_bound", "reduce_bound",
+                               "elemt_bound", "kernels", "chain",
+                               "batch_norm")}
+    for c, h, mode, count in shapes:
+        shape = (n, c, h, h)
+        x, res, dy, w, b, running, mask, stats, y, sums = bn_act_shape(
+            torch, dev, bnk, c, h, mode, n, torch.bfloat16)
+        relu = mask != bnk.NO_RELU
+        errors = bn_act_errors(torch, bnk, f"bf16 {shape} {mode}", x, res,
+                               dy, w, b, stats, y, sums, mask)
+        for k in worst:
+            worst[k] = max(worst[k], errors[k])
+        kernel_ms = {
+            "stats": device_ms(lambda: bnk.batch_norm_stats(
+                x, *running, 1e-5, 0.1), 5),
+            "apply": device_ms(lambda: bnk.batch_norm_apply(
+                x, stats, w, b, res, relu), 5),
+            "reduce": device_ms(lambda: bnk.batch_norm_backward_reduce(
+                dy, x, stats, w, b, mask, y), 5),
+            "elemt": device_ms(lambda: bnk.batch_norm_backward_elemt(
+                dy, x, stats, w, b, sums, mask, y, res is not None), 5),
+        }
+        xg = x.detach().requires_grad_(True)
+        rg = None if res is None else res.detach().requires_grad_(True)
+        wg = w.detach().requires_grad_(True)
+        bg = b.detach().requires_grad_(True)
+
+        def chain():
+            out = old_batch_norm_chain(torch, xg, rg, wg, bg, running, relu)
+            out.backward(dy)
+
+        def batch_norm():
+            out = torch.nn.functional.batch_norm(xg, None, None, wg, bg,
+                                                 True, 0.1, 1e-5)
+            out.backward(dy)
+
+        chain_ms, bn_ms = device_ms(chain, 3), device_ms(batch_norm, 3)
+        bound = {k: v / HBM_BYTES_PER_S * 1e3 for k, v in
+                 bn_act_bytes(shape, 2, mode).items()}
+        row = {"shape": list(shape), "mode": mode, "count": count, **errors,
+               **{f"{k}_ms": v for k, v in kernel_ms.items()},
+               **{f"{k}_bound_ms": v for k, v in bound.items()},
+               **{f"{k}_roofline": bound[k] / kernel_ms[k]
+                  for k in kernel_ms},
+               "kernels_ms": sum(kernel_ms.values()),
+               "old_chain_ms": chain_ms, "f_batch_norm_ms": bn_ms}
+        rows.append(row)
+        for k in kernel_ms:
+            totals[k] += count * kernel_ms[k]
+            totals[f"{k}_bound"] += count * bound[k]
+        totals["kernels"] += count * row["kernels_ms"]
+        totals["chain"] += count * chain_ms
+        totals["batch_norm"] += count * bn_ms
+        del x, res, dy, y, xg, rg
+        torch.cuda.empty_cache()
+    shares = {f"{k}_roofline": totals[f"{k}_bound"] / totals[k]
+              for k in ("stats", "apply", "reduce", "elemt")}
+    c, h, mode = BN_ACT_F32_SHAPE
+    x, res, dy, w, b, _, mask, stats, y, sums = bn_act_shape(
+        torch, dev, bnk, c, h, mode, n, torch.float32)
+    f32 = {"shape": [n, c, h, h], "mode": mode, **bn_act_errors(
+        torch, bnk, f"f32 {(n, c, h, h)} {mode}", x, res, dy, w, b, stats, y,
+        sums, mask)}
+    del x, res, dy, y
+    torch.cuda.empty_cache()
+    out = {"rows": rows, "microbatch_ms": totals, **shares,
+           "step_ms": {k: 4 * v for k, v in totals.items()},
+           "worst_errors": worst, "f32_check": f32}
+    emit("batch_norm_act", views=n, dtype="bf16", **out)
+    return out
+
+
+def batch_norm_act_row(run: dict, pretrain_mb512: dict) -> dict:
+    """Kernel 6's row of the kernels line: the trunk's totals of phase 3g
+    a microbatch of the pretrain cell, its launches as the pretrain phase's
+    mb512 step read them (counts set to 0 just before)."""
+    totals = run["microbatch_ms"]
+    return {
+        "name": "batch_norm_act", "route": "cuda",
+        "source": "peclr_tpu_torch/csrc/batch_norm_act.cu",
+        "replaces": ("none (the BatchNorm, residual add and ReLU that XLA "
+                     "fuses for the reference)"),
+        "launches": {k: pretrain_mb512["launches"][k]
+                     for k in BATCH_NORM_ACT},
+        "device_ms": totals["kernels"], "plain_ms": totals["chain"],
+        "library_ms": totals["batch_norm"],
+        "bound_ms": sum(totals[f"{k}_bound"] for k in
+                        ("stats", "apply", "reduce", "elemt")),
+        "bound_by": "bytes", "timed_case": "rn50_mb512_microbatch",
+        **{k: run[k] for k in ("stats_roofline", "apply_roofline",
+                               "reduce_roofline", "elemt_roofline")},
+        "max_errors": run["worst_errors"],
+        "tolerances": {"stats": [BN_ACT_MEAN_TOL, BN_ACT_INVSTD_TOL],
+                       "reduce_sums": BN_ACT_SUMS_TOL, "apply": 0.0,
+                       "elemt": 0.0},
+        "f32_check": run["f32_check"],
+    }
+
+
 #: the accuracy phase: the downstream chain at the reference's widths (RN50,
 #: crop 128, batch 64), cut in steps only, and the proxy's pretraining
 ACCURACY_CHAIN_ARGV = ["--resnet", "50", "--crop", "128", "--batch", "64",
@@ -3480,9 +3925,15 @@ def phase_accuracy(torch, dev):
                   if not name.startswith("leaderboard")) // 2
     check(chain_counts["photometric"] == applies, f"accuracy: photometric "
           f"launched {chain_counts['photometric']} times, want {applies}")
+    # the pretraining microbatches train the trunk on channels-last views;
+    # the fine-tunes' views keep the warp's planes (NCHW): no kernel 6
+    trained = sum(phase["kernel1_launches"] for name, phase in
+                  chain["phases"].items() if name.startswith("pretrain")) // 2
+    want = augment_launches("shift_lerp_grouped", applies, trained)
+    want.pop("shift_lerp_grouped")
     others = {k: v for k, v in chain_counts.items()
-              if k not in ("shift_lerp_grouped", "photometric")}
-    check(not any(others.values()), f"accuracy: other kernels ran {others}")
+              if k != "shift_lerp_grouped" and v != want.get(k, 0)}
+    check(not others, f"accuracy: launches {others}, want {want}")
     check(not loop_waits, f"accuracy: host waits in the loops {loop_waits}")
 
     reset_counts()
@@ -3539,7 +3990,8 @@ def accuracy_rn152(torch, dev) -> dict:
         counts = kernel_counts()
         check(all(math.isfinite(v) for v in losses),
               f"accuracy rn152: {kind} losses {losses}")
-        want = augment_launches("shift_lerp_grouped", ACCUM * RN152_STEPS)
+        want = augment_launches("shift_lerp_grouped", ACCUM * RN152_STEPS,
+                                ACCUM * RN152_STEPS, "152")
         for kname, launched in counts.items():
             check(launched == want.get(kname, 0), f"accuracy rn152: {kind} "
                   f"launched {kname} {launched} times, want "
@@ -3625,11 +4077,11 @@ def phase_bench_scripts(torch, dev):
                   f"{name}: kernel 1 launched {counts['shift_lerp_grouped']} "
                   f"times, want {BENCH_LAUNCHES[name]}")
             photo = BENCH_LAUNCHES[name] // 2 if name in BENCH_AUGMENT else 0
-            check(counts["photometric"] == photo, f"{name}: photometric "
-                  f"launched {counts['photometric']} times, want {photo}")
-            others = {k: v for k, v in counts.items()
-                      if k not in ("shift_lerp_grouped", "photometric") and v}
-            check(not others, f"{name}: other kernels ran {others}")
+            # each augmented microbatch trains the RN50 trunk
+            want = augment_launches("shift_lerp_grouped", photo, photo)
+            want["shift_lerp_grouped"] = BENCH_LAUNCHES[name]
+            wrong = {k: v for k, v in counts.items() if v != want.get(k, 0)}
+            check(not wrong, f"{name}: launches {wrong}, want {want}")
             check(not window_waits, f"{name}: host waits inside a timed "
                   f"window {window_waits}")
             runs[name] = {"seconds": time.perf_counter() - t0,
@@ -4411,6 +4863,10 @@ def poison_case(torch, dev, name, launch, plain) -> dict:
         row["max_rel_err_f64"], row["max_abs_err"] = _stats_err(first, ref)
         row["tolerance"] = STATS_TOL
         ok = row["max_rel_err_f64"] <= STATS_TOL
+    elif name.startswith("batch_norm_act"):
+        fields = bn_case_ok(torch, name, first, ref)
+        ok = fields.pop("ok")
+        row.update(fields)
     elif name.startswith("kernel4"):
         row["max_abs_err"] = (first.float() - ref.float()).abs().max().item()
         row["tolerance"] = MATMUL_TOL[str(first.dtype)]
@@ -4437,7 +4893,8 @@ POISON_KERNEL_OF = (
     ("kernel3", "shift_lerp_flat"), ("kernel4", "shift_lerp_matmul"),
     ("tap_band", "shift_lerp_matmul"), ("stream_copy", "stream_copy"),
     ("stream_add", "stream_add"), ("stream_bn_res_relu", "stream_bn_res_relu"),
-    ("stream_stats", "stream_stats"), ("photometric", "photometric"))
+    ("stream_stats", "stream_stats"), ("photometric", "photometric"),
+    ("batch_norm_act", "batch_norm_act"))
 
 
 def phase_poison(torch, dev) -> dict:
@@ -4449,7 +4906,7 @@ def phase_poison(torch, dev) -> dict:
     t_phase = time.perf_counter()
     rows = []
     for source in (repeat_cases, ragged_cases, stream_cases,
-                   photometric_cases):
+                   photometric_cases, batch_norm_act_cases):
         cases = source(torch, dev)
         rows += [poison_case(torch, dev, *case) for case in cases]
         del cases
@@ -4612,6 +5069,10 @@ def phase_bench_guard(torch, dev):
     want = {"shift_lerp_grouped": 2 * 2 * ACCUM * runs
             + (2 + 4) * (runs + iters),
             "photometric": 2 * ACCUM * runs + (runs + iters)}
+    # the RN50 and RN152 recipe steps train their trunks on channels-last
+    # views; the fine-tune's are NCHW and the two-pass batch is eval mode
+    want.update(dict.fromkeys(BATCH_NORM_ACT, ACCUM * runs * (
+        trunk_batch_norms("50") + trunk_batch_norms("152"))))
     for kname, launched in counts.items():
         check(launched == want.get(kname, 0), f"bench_guard: {kname} "
               f"launched {launched} times, want {want.get(kname, 0)}")
@@ -4724,7 +5185,7 @@ def main() -> int:
     # ---- 2. build --------------------------------------------------------
     t0 = time.perf_counter()
     per_source = build.build(["shift_lerp", "shift_lerp_matmul", "streams",
-                              "photometric", "jpeg_decode"])
+                              "photometric", "batch_norm_act", "jpeg_decode"])
     emit("build", seconds=time.perf_counter() - t0, per_source=per_source,
          arch="sm_90a", host_sources=["jpeg_decode"])
     # ---- 2a. the port's JPEG decode pool on this host ----------------------
@@ -4737,6 +5198,7 @@ def main() -> int:
     nonfinite_rows = phase_matmul_nonfinite(torch, dev)
     phase_tf32(torch, dev)
     photometric_run = phase_photometric(torch, dev)
+    batch_norm_act_run = phase_batch_norm_act(torch, dev)
 
     # ---- 4. warp at the pred_fh geometry -------------------------------------
     frames = seeded_frames(N_FRAMES, SEED)
@@ -4846,6 +5308,13 @@ def main() -> int:
             run["path"] = shift_paths()["grouped"]
             check(run["path"] == "vec16", f"{mode}: the slice's last shift "
                   f"took the {run['path']} path, want vec16")
+            # the predictor augments nothing and runs its trunk in eval mode
+            idle = {k: kernel_counts()[k] for k in
+                    ("photometric", "shift_lerp_flat", "shift_lerp_matmul")
+                    + BATCH_NORM_ACT + (BATCH_NORM_MOMENTS,)}
+            check(not any(idle.values()), f"{mode}: kernels the predictor "
+                  f"does not run launched {idle}")
+            run["other_launches"] = idle
             launched = run["launches" if lerp_in_kernel else "raw_launches"]
             check(launched >= 4 * run["batches"],
                   f"{mode}: kernel launched {launched} times for "
@@ -4910,7 +5379,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 7. the pretrain step ------------------------------------------------------
-    pretrain_runs = phase_pretrain(torch, dev)
+    pretrain_runs, pretrain_mb512 = phase_pretrain(torch, dev)
     phase_pretrain_vs_cpu(torch, dev)
     # ---- 7a. the recipe step in f32 through kernel 4's f32 taps -----------------
     f32_runs = phase_pretrain_f32_matmul(torch, dev)
@@ -5065,6 +5534,7 @@ def main() -> int:
                 nonfinite_max_abs=max(r["max_abs"] for r in nonfinite_rows)),
         *multichip_run["kernel_rows"],
         photometric_row(photometric_run, pretrain_runs, finetune_run),
+        batch_norm_act_row(batch_norm_act_run, pretrain_mb512),
     ]
     for row in kernels:
         row["poison"] = poison[row["name"]]
@@ -5196,7 +5666,7 @@ def poison_main() -> int:
         return 2
     CARD = card_line()
     build.build(["shift_lerp", "shift_lerp_matmul", "streams",
-                 "photometric"])
+                 "photometric", "batch_norm_act"])
     phase_poison(torch, resolve_device("cuda"))
     print(CARD, flush=True)
     return 0

@@ -8,6 +8,9 @@ the reference's space-to-depth StemConv is a TPU layout of the same linear
 map.  BatchNorm uses eps 1e-5 and, in eval mode, the running statistics;
 in train mode it normalises with the batch statistics and updates the
 running ones as the reference's flax BatchNorm does (models/batchnorm.py).
+Each BatchNorm with the residual add and the ReLU after it is one call of
+`batch_norm_act`, which runs them as hand-written CUDA passes for a
+channels-last tensor on the card in train mode.
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from peclr_tpu_torch.models.batchnorm import BatchNorm2d
+from peclr_tpu_torch.models.batchnorm import BatchNorm2d, batch_norm_act
 from peclr_tpu_torch.ops.pooling import max_pool_3x3s2p1
 
 #: stage template per resnet size: (block kind, blocks-per-stage)
@@ -54,9 +57,8 @@ class BasicBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         identity = x if self.downsample is None else self.downsample(x)
-        out = torch.relu(self.bn1(self.conv1(x)))
-        out = self.bn2(self.conv2(out))
-        return torch.relu(out + identity)
+        out = batch_norm_act(self.bn1, self.conv1(x))
+        return batch_norm_act(self.bn2, self.conv2(out), identity)
 
 
 class Bottleneck(nn.Module):
@@ -76,10 +78,9 @@ class Bottleneck(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         identity = x if self.downsample is None else self.downsample(x)
-        out = torch.relu(self.bn1(self.conv1(x)))
-        out = torch.relu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(out))
-        return torch.relu(out + identity)
+        out = batch_norm_act(self.bn1, self.conv1(x))
+        out = batch_norm_act(self.bn2, self.conv2(out))
+        return batch_norm_act(self.bn3, self.conv3(out), identity)
 
 
 def resnet_stages(size: str):
@@ -118,7 +119,7 @@ class ResNet(nn.Module):
         self.fc = nn.Linear(cin, num_outputs)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = torch.relu(self.bn1(self.conv1(x)))
+        x = batch_norm_act(self.bn1, self.conv1(x))
         x = max_pool_3x3s2p1(x)
         x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
         # global average pool == AdaptiveAvgPool2d((1, 1))
@@ -129,7 +130,8 @@ class ResNetEncoder(nn.Module):
     """The backbone without fc, as the reference's PeCLR encoder: a
     Sequential `features` (0 conv1, 1 bn1, 2 relu, 3 max pool, 4..7
     layer1..layer4), so the state-dict keys are those of the reference's
-    `encoder.features.N.*` checkpoints.
+    `encoder.features.N.*` checkpoints.  forward applies bn1 and the ReLU as
+    one `batch_norm_act`, then the rest in order.
 
     forward takes NCHW float images and returns the pooled (B, E) embedding
     in float32."""
@@ -143,8 +145,12 @@ class ResNetEncoder(nn.Module):
             *layers)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        f = self.features
+        x = batch_norm_act(f[1], f[0](x))
+        for i in range(3, len(f)):
+            x = f[i](x)
         # global average pool == AdaptiveAvgPool2d((1, 1))
-        return torch.mean(self.features(x), dim=(2, 3)).float()
+        return torch.mean(x, dim=(2, 3)).float()
 
 
 class ResNetPose(ResNet):

@@ -716,8 +716,9 @@ def test_two_gloo_ranks_on_one_card_match_one_process(card):
 
 
 def test_batchnorm_across_ranks_on_the_card(card):
-    """The BatchNorm across two gloo ranks on the card (the fused kernels of
-    SyncBatchNorm) against torch's on the whole batch in one process, as
+    """The BatchNorm across two gloo ranks on the card (the f64 sums of
+    ops/batch_norm_act.py, then the fused kernels of SyncBatchNorm) against
+    torch's on the whole batch in one process, as
     the CPU's written-out formulas are held in tests/test_torch_parallel.py,
     and against those formulas on the same ranks: f32 within 1e-5 of each
     tensor's scale."""
@@ -1174,7 +1175,10 @@ POISON_CASES = [
     "stream_copy_ragged_bfloat16", "stream_add_ragged_bfloat16",
     "stream_bn_res_relu_ragged_bfloat16", "stream_stats_ragged_bfloat16",
     "photometric_ragged_planes_w130", "photometric_ragged_planes_h77",
-    "photometric_ragged_nhwc_7x13x36", "photometric_ragged_planes_no_jitter"]
+    "photometric_ragged_nhwc_7x13x36", "photometric_ragged_planes_no_jitter",
+    *(f"batch_norm_act_{kernel}_{where}_bfloat16"
+      for where in ("c72", "c64")
+      for kernel in ("stats", "apply", "backward_reduce", "backward_elemt"))]
 
 
 @pytest.mark.parametrize("name", POISON_CASES)
@@ -1197,7 +1201,8 @@ def test_poisoned_buffers_leave_the_output_unchanged(card, name):
     cases = {n: (launch, plain) for n, launch, plain in
              chip_smoke.ragged_cases(torch, card)
              + chip_smoke.stream_cases(torch, card, ragged)
-             + chip_smoke.photometric_cases(torch, card)}
+             + chip_smoke.photometric_cases(torch, card)
+             + chip_smoke.batch_norm_act_cases(torch, card)}
     row = chip_smoke.poison_case(torch, card, name, *cases[name])
     assert row["differing_patterns"] == []
     assert row["poisoned_buffers"] == [f"{row['buffers']}/{row['buffers']}"] * 3

@@ -41,6 +41,11 @@ RAGGED_STREAM_SHAPES = [s for s in chip_smoke.STREAM_POISON_SHAPES
                         if s[0] == "ragged"]
 PHOTOMETRIC = [f"photometric_ragged_{case[0]}"
                for case in chip_smoke.PHOTOMETRIC_RAGGED]
+BATCH_NORM_ACT = [f"batch_norm_act_{kernel}_{where}_{dtype}"
+                  for where, _ in chip_smoke.BN_ACT_POISON_SHAPES
+                  for dtype in ("bfloat16", "float32")
+                  for kernel in ("stats", "apply", "backward_reduce",
+                                 "backward_elemt")]
 
 
 def _ragged():
@@ -125,15 +130,49 @@ def test_photometric_case_on_the_cpu(case):
     assert x.is_contiguous() != planes
 
 
+def test_batch_norm_act_shapes_are_ragged():
+    """Odd row counts, C a multiple of the 16-byte vector (the kernels take
+    no other), and more rows than one row block of a reduction tile takes
+    (256 threads over the tile's lanes, 16 rows each), bf16 and f32."""
+    for _, (n, c, h, w) in chip_smoke.BN_ACT_POISON_SHAPES:
+        rows = n * h * w
+        assert rows % 2
+        for per_vec in (8, 4):
+            assert c % per_vec == 0
+            lanes = min(c // per_vec, 32)
+            assert rows > 256 // lanes * 16, (c, per_vec)
+
+
+def _batch_norm_act_cases():
+    torch.manual_seed(0)
+    return {name: (launch, plain) for name, launch, plain in
+            chip_smoke.batch_norm_act_cases(torch, CPU)}
+
+
+def test_batch_norm_act_cases_are_the_listed_ones():
+    assert list(_batch_norm_act_cases()) == BATCH_NORM_ACT
+
+
+@pytest.mark.parametrize("name", BATCH_NORM_ACT)
+def test_batch_norm_act_case_on_the_cpu(name):
+    """Kernel 6's cases: the launch (the plain passes here) against the
+    plain version by the poison phase's own check."""
+    launch, plain = _batch_norm_act_cases()[name]
+    got, ref = launch(), plain()
+    fields = chip_smoke.bn_case_ok(torch, name, got, ref)
+    assert fields["ok"], fields
+
+
 def test_every_case_has_a_kernels_line_row():
     rows = {"shift_lerp_grouped", "shift_raw_grouped", "shift_lerp_flat",
             "shift_lerp_matmul", "stream_copy", "stream_add",
-            "stream_bn_res_relu", "stream_stats", "photometric"}
+            "stream_bn_res_relu", "stream_stats", "photometric",
+            "batch_norm_act"}
     recipe = ["kernel1_pass1_u8_to_bf16", "kernel1_pass2_bf16_to_bf16",
               "kernel2_raw_pass1_u8", "kernel3_pass1_u8_to_bf16",
               "kernel4_pass1_bf16_taps", "kernel4_pass1_f32_taps"]
     seen = set()
-    for name in recipe + RAGGED + STREAMS + PHOTOMETRIC:
+    for name in recipe + RAGGED + STREAMS + PHOTOMETRIC + BATCH_NORM_ACT:
         kernel = next(k for prefix, k in chip_smoke.POISON_KERNEL_OF
                       if name.startswith(prefix))
         seen.add(kernel)
